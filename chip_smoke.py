@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
    main path's shapes: max |err| against the stated tolerance, the
    kernel's, the plain version's and (where one PyTorch call computes
    the same function) that call's time in ms, and the least time the
-   card could take (``bound_ms``);
+   card could take (``bound_ms``).  Flash attention is checked on the
+   reference's six test cases in float32 and bf16 and at smollm-135m's
+   shape in float32 and bf16, with a control that must fail; the bf16 SphIoU option also against the float32 kernel's keep
+   masks (the reference's flip gate);
 4. a small input through the per-request path on the card and on the
    CPU: the same SRoIs and plans, PIs, detector heads and detection
    scores within tolerance;
@@ -25,8 +28,26 @@ Phases, in order; any failure exits non-zero:
    batched ticks (``begin_frame``, ``launch_srois_batched`` per variant
    with the fused projection and crop cache, ``finish_frame(defer_nms=
    True)``, one ``sph_nms_batch(backend="cuda")`` over the padded tick,
-   ``finalize_detections``).  Launch counts are set to 0 just before each
-   of the two paths and read just after; every kernel must have run.
+   ``finalize_detections``), and each tick's rows once more through the
+   bf16 SphIoU option (``iou_dtype=torch.bfloat16``), its keep flips
+   against float32 reported.  Launch counts are set to 0 just before each
+   of the two paths and read just after; every kernel must have run;
+6. the LM serving path at full width: smollm-135m (``full_config()``,
+   published widths, 30 layers, bf16 weights from a seeded generator)
+   with ``attention_impl="flash"``: ``lm_prefill_step`` on 4 prompts of
+   2048 tokens, 32 greedy ``lm_decode_step``s, then one prefill of
+   32768 tokens (``prefill_32k``'s length; its batch cut from 32 to 1).
+   Prefill ms per request, decode ms per token, the generated tokens'
+   digest and the kernel's launches are printed; logits must be finite,
+   the 4x2048 prefill's logits must agree with the same step under
+   ``attention_impl="chunked"``, the attention of each of its layers and
+   the 32k prefill's layer-0 attention with the chunked plain version
+   within one bf16 ulp and ``ATTN_BF16_ATOL``, a limit that a control
+   with one K/V tile dropped must fail.  Launch counts are set to 0 before
+   the path and read after it.
+
+``--profile`` also profiles the last batched tick, one LM prefill step
+and four decode steps: the card's busy share of each and its top kernels.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -46,10 +67,40 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
-# float32 FLOP/s outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
+# float32 FLOP/s outside the tensor cores, and the dense bf16 tensor-core
+# rate (attention's work is matrix products, which the card runs there)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
+
+# the reference's bf16 SphIoU gate (tests/test_fused_tick.py): keep flips
+# against float32 at most 1%, and none on a row with no IoU pair within
+# 0.05 of the 0.6 threshold
+BF16_FLIP_BOUND = 0.01
+BF16_NEAR_MARGIN = 0.05
+# the bf16 SphIoU kernel against its bf16 plain version: both round every
+# intermediate to bf16; one float32 ulp of a transcendental can round to
+# the other bf16 neighbour, which moves an IoU by a few bf16 ulps
+BF16_IOU_ATOL = 2.0 ** -6
+# smollm-135m's last-token logits, flash kernel against the chunked plain
+# version: both round activations to bf16 in each of 30 layers, at other
+# places (the kernel's output once, the chunked version's after its own
+# sum order); on the CPU at S=256 the two plain versions differ by 0.031
+LM_LOGIT_ATOL = 0.1
+# flash attention in bf16 against the float32 plain version rounded to
+# bf16: both sum in float32 and round once, so where they agree they
+# differ by one bf16 ulp of the value at most (2^-7 of it) plus the
+# difference of the two float32 sums.  The check holds
+# max(|got - ref| - ATTN_BF16_RTOL |ref|) to ATTN_BF16_ATOL, and also
+# holds a control to it, the plain version with one 64-key K/V tile
+# dropped, which must fail: a limit that a kernel skipping a tile would
+# pass checks nothing.  ATTN_BF16_ATOL is the reference's float32 atol;
+# on the H100 the excess read at most 2.6e-7 and the control at least
+# 1.3e-3 (at 32k, where one tile is the smallest share of a row)
+ATTN_BF16_RTOL = 2.0 ** -7
+ATTN_BF16_ATOL = 2e-5
+ATTN_DROPPED_TILE = 64
 
 # the kernels and what each replaces in the JAX package
 KERNELS = {
@@ -65,7 +116,15 @@ KERNELS = {
     "greedy_suppress_rows": (
         "src/repro_torch/kernels/nms/csrc/greedy.cu",
         "src/repro/core/sphere.py:417"),
+    "sphiou_matrix_batch_bf16": (
+        "src/repro_torch/kernels/sphiou/csrc/sphiou.cu",
+        "src/repro/kernels/sphiou/sphiou.py:120 (dtype=bfloat16)"),
+    "flash_attention": (
+        "src/repro_torch/kernels/attention/csrc/attention.cu",
+        "src/repro/kernels/attention/attention.py:130"),
 }
+# the kernels the LM serving path runs; the frame loop runs the others
+LM_KERNELS = ("flash_attention",)
 
 
 class PhaseError(RuntimeError):
@@ -108,9 +167,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS
+             ) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -323,6 +383,263 @@ def check_nms(records: dict) -> None:
                 bound_by=gb_by, library_ms=None, shape=f"B={b} N={n}")
 
 
+def bench_box_sets():
+    """The reference bench's box sets for the bf16 flip gate
+    (``benchmarks/kernels_bench.py``): 10 trials of 8 rows x 24 boxes."""
+    import numpy as np
+
+    for trial in range(10):
+        rng = np.random.default_rng(trial)
+        boxes = np.stack([rng.uniform(-3, 3, (8, 24)),
+                          rng.uniform(-1.2, 1.2, (8, 24)),
+                          rng.uniform(0.3, 1.2, (8, 24)),
+                          rng.uniform(0.3, 1.2, (8, 24))], -1
+                         ).astype(np.float32)
+        yield boxes, rng.uniform(0.1, 1, (8, 24)).astype(np.float32)
+
+
+def near_threshold_rows(boxes, thr: float = 0.6):
+    """(B,) True where a row holds a pair with float64 IoU within
+    ``BF16_NEAR_MARGIN`` of the threshold (self-pairs aside)."""
+    import numpy as np
+
+    from repro_torch.core.sphere import sph_iou_matrix_np
+
+    iou = np.stack([sph_iou_matrix_np(r.astype(np.float64),
+                                      r.astype(np.float64)) for r in boxes])
+    near = np.abs(iou - thr) <= BF16_NEAR_MARGIN
+    np.einsum("bii->bi", near)[:] = False
+    return near.any(axis=(1, 2))
+
+
+def check_sphiou_bf16(records: dict) -> None:
+    import torch
+
+    from repro_torch.core.sphere import sph_nms_batch
+    from repro_torch.kernels.sphiou import ops as iou_ops
+    from repro_torch.kernels.sphiou.ref import (sphiou_ref_batch,
+                                                sphiou_ref_batch_bf16)
+
+    dev = torch.device("cuda")
+    b, n = 32, 512
+    boxes, _, _ = nms_inputs(b, n, b + n)  # row 3's inputs
+    bx = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    got = iou_ops.sphiou_matrix_batch(bx, bx, dtype=torch.bfloat16)
+    ref = sphiou_ref_batch_bf16(bx, bx)
+    err = float((got - ref).abs().max())
+    check(err <= BF16_IOU_ATOL,
+          f"sphiou_matrix_batch_bf16 {b}x{n}: max |err| {err}")
+    exact = sphiou_ref_batch(bx, bx)
+    d_kernel = float((got - exact).abs().max())
+    d_plain = float((ref - exact).abs().max())
+    ms = time_ms(lambda: iou_ops.sphiou_matrix_batch(bx, bx,
+                                                     dtype=torch.bfloat16))
+    plain_ms = time_ms(lambda: sphiou_ref_batch_bf16(bx, bx), reps=5)
+    # the same work as the float32 entry (its arithmetic runs in float32)
+    b_ms, b_by = bound_ms(2 * b * n * 16 + b * n * n * 4, b * n * n * 80)
+    print(f"kernel sphiou_matrix_batch_bf16 B={b} N={n}: max|err| {err:.3g} "
+          f"against the bf16 plain version (tol {BF16_IOU_ATOL:.3g}); from "
+          f"the float32 IoU: kernel {d_kernel:.3g}, plain {d_plain:.3g}; "
+          f"ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms null, "
+          f"bound_ms {b_ms:.5f} ({b_by})")
+    flips = total = far_flips = 0
+    for boxes, scores in bench_box_sets():
+        k32 = sph_nms_batch(boxes, scores, backend="cuda")
+        k16 = sph_nms_batch(boxes, scores, backend="cuda",
+                            iou_dtype=torch.bfloat16)
+        diff = k32 != k16
+        flips += int(diff.sum())
+        total += diff.size
+        far_flips += int((diff.any(axis=1) & ~near_threshold_rows(boxes)).sum())
+    rate = flips / total
+    print(f"kernel sphiou_matrix_batch_bf16 keep masks against float32 on the "
+          f"reference bench's box sets: {flips} flips of {total} ({rate:.4f}, "
+          f"bound {BF16_FLIP_BOUND}), {far_flips} on rows with no pair within "
+          f"{BF16_NEAR_MARGIN} of the threshold (bound 0)")
+    check(rate <= BF16_FLIP_BOUND and far_flips == 0,
+          f"bf16 SphIoU flip gate: rate {rate}, far-row flips {far_flips}")
+    records["sphiou_matrix_batch_bf16"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, shape=f"B={b} N={n}",
+        keep_flip_rate=rate)
+
+
+FLASH_CASES = [  # the reference's (tests/test_kernels.py)
+    dict(b=2, sq=64, skv=64, hq=4, hkv=4, d=32, causal=True, window=None),
+    dict(b=1, sq=128, skv=128, hq=8, hkv=2, d=64, causal=True, window=None),
+    dict(b=1, sq=96, skv=96, hq=2, hkv=2, d=32, causal=True, window=32),
+    dict(b=2, sq=1, skv=200, hq=4, hkv=1, d=32, causal=True, window=None),
+    dict(b=1, sq=64, skv=64, hq=2, hkv=2, d=32, causal=False, window=None),
+    dict(b=1, sq=80, skv=160, hq=2, hkv=2, d=16, causal=True, window=64),
+]
+
+
+def sdpa_call(q, k, v):
+    """One PyTorch call computing causal GQA attention on (B, S, H, D)
+    tensors: the library yardstick, timed only."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+
+def flash_bound(b: int, s: int, hq: int, hkv: int, d: int
+                ) -> tuple[float, str]:
+    """Causal attention's least time: 4*D operations a (query, key) pair
+    at the bf16 tensor-core rate, against q, k, v and the output moved
+    once in bf16."""
+    pairs = b * hq * s * (s + 1) // 2
+    n_bytes = 2 * d * b * s * (2 * hq + 2 * hkv)
+    return bound_ms(n_bytes, 4 * d * pairs, PEAK_BF16_TC_FLOPS)
+
+
+def attn_excess(got, ref) -> float:
+    """How far ``got`` lies outside one bf16 ulp of ``ref``:
+    max(|got - ref| - ATTN_BF16_RTOL |ref|), held to ATTN_BF16_ATOL."""
+    g, r = got.float(), ref.float()
+    return float(((g - r).abs() - ATTN_BF16_RTOL * r.abs()).max())
+
+
+def attention_dropping_tile(q, k, v, lo: int, rows: int = 2048):
+    """The control: causal GQA attention in float32, as the plain
+    version computes it, but blind to keys lo..lo+ATTN_DROPPED_TILE-1,
+    as a kernel that skipped that K/V tile would be; by blocks of
+    ``rows`` queries, so the scores of a 32k sequence fit.  Output in q's
+    dtype."""
+    import torch
+
+    b, s, hq, d = q.shape
+    rep = hq // k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    seen = (kpos < lo) | (kpos >= lo + ATTN_DROPPED_TILE)
+    out = torch.empty_like(q)
+    for r0 in range(0, s, rows):
+        qb = q[:, r0:r0 + rows].float()
+        qpos = r0 + torch.arange(qb.shape[1], device=q.device)
+        mask = (kpos[None, :] <= qpos[:, None]) & seen[None, :]
+        sc = torch.einsum("bqhd,bkhd->bhqk", qb, kf) * d ** -0.5
+        p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        out[:, r0:r0 + rows] = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(
+            q.dtype)
+        del sc, p
+    return out
+
+
+def check_attn_bf16(got, ref, control, what: str) -> str:
+    """Hold a bf16 flash output to ATTN_BF16_ATOL past one bf16 ulp of
+    the plain version, and check the control fails that limit.  Returns
+    the readings, for the printed line."""
+    ex, ex_ctl = attn_excess(got, ref), attn_excess(control, ref)
+    check(ex <= ATTN_BF16_ATOL,
+          f"{what}: |err| exceeds 2^-7 |ref| by {ex}, limit {ATTN_BF16_ATOL}")
+    check(ex_ctl > ATTN_BF16_ATOL,
+          f"{what}: the control with a K/V tile dropped passes the limit "
+          f"({ex_ctl} <= {ATTN_BF16_ATOL})")
+    return (f"|err| - 2^-7 |ref| at most {ex:.3g} (limit {ATTN_BF16_ATOL}; "
+            f"the control with {ATTN_DROPPED_TILE} keys dropped {ex_ctl:.3g}, "
+            f"fails)")
+
+
+def check_flash(records: dict) -> None:
+    import torch
+
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def qkv(b, sq, skv, hq, hkv, d, dtype):
+        return (torch.randn((b, sq, hq, d), generator=gen, device=dev
+                            ).to(dtype),
+                torch.randn((b, skv, hkv, d), generator=gen, device=dev
+                            ).to(dtype),
+                torch.randn((b, skv, hkv, d), generator=gen, device=dev
+                            ).to(dtype))
+
+    for dtype, tol in ((torch.float32, "atol 2e-5 + rtol 1e-4"),
+                       (torch.bfloat16, "atol 3e-2")):
+        worst = 0.0
+        for c in FLASH_CASES:
+            q, k, v = qkv(c["b"], c["sq"], c["skv"], c["hq"], c["hkv"],
+                          c["d"], dtype)
+            kw = dict(causal=c["causal"], window=c["window"],
+                      q_offset=c["skv"] - c["sq"] if c["causal"] else 0)
+            got = flash_attention(q, k, v, **kw).float()
+            ref = flash_attention_ref(q, k, v, **kw).float()
+            worst = max(worst, float((got - ref).abs().max()))
+            ok = (torch.allclose(got, ref, atol=2e-5, rtol=1e-4)
+                  if dtype == torch.float32
+                  else float((got - ref).abs().max()) <= 3e-2)
+            check(ok, f"flash_attention {dtype} case {c}: max |err| "
+                      f"{float((got - ref).abs().max())}")
+        print(f"kernel flash_attention {str(dtype)[6:]}: the reference's six "
+              f"cases, max|err| {worst:.3g} ({tol})")
+
+    # the main path's shape: smollm-135m's 4 x 2048 prefill, one layer, in
+    # float32 at the reference's tolerance, then in bf16 against one bf16
+    # ulp of the plain version, with the control beside it
+    b, s, hq, hkv, d = 4, 2048, 9, 3, 64
+    q, k, v = qkv(b, s, s, hq, hkv, d, torch.float32)
+    got = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_ref(q, k, v, causal=True)
+    err32 = float((got - ref).abs().max())
+    check(bool(torch.allclose(got, ref, atol=2e-5, rtol=1e-4)),
+          f"flash_attention smollm shape float32: max |err| {err32}")
+    ctl = attention_dropping_tile(q, k, v, s // 2)
+    ctl_err = float((ctl - ref).abs().max())
+    check(not torch.allclose(ctl, ref, atol=2e-5, rtol=1e-4),
+          "flash_attention smollm shape float32: the control passes")
+    print(f"kernel flash_attention B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+          f"float32 causal: max|err| {err32:.3g} (atol 2e-5 + rtol 1e-4; "
+          f"the control with {ATTN_DROPPED_TILE} keys dropped {ctl_err:.3g}, "
+          f"fails)")
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_ref(q, k, v, causal=True)
+    err = float((got.float() - ref.float()).abs().max())
+    check(err <= 3e-2, f"flash_attention smollm shape: max |err| {err}")
+    readings = check_attn_bf16(got, ref,
+                               attention_dropping_tile(q, k, v, s // 2),
+                               "flash_attention smollm shape bf16")
+    lib = sdpa_call(q, k, v)
+    lib_err = float((got.float() - lib().transpose(1, 2).float()).abs().max())
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                       reps=5)
+    lib_ms = time_ms(lib)
+    b_ms, b_by = flash_bound(b, s, hq, hkv, d)
+    print(f"kernel flash_attention B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
+          f"causal: max|err| {err:.3g} (tol 3e-2), {readings}; against "
+          f"SDPA {lib_err:.3g}; ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+          f"library_ms {lib_ms:.4f} (F.scaled_dot_product_attention), "
+          f"bound_ms {b_ms:.5f} ({b_by}), {ms / lib_ms:.1f}x the library")
+    records["flash_attention"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms,
+        shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal")
+
+    # and the 32k prefill's shape (one layer, B=1); the plain version would
+    # materialise ~39 GB of scores, so it is held to the chunked one in the
+    # LM phase
+    s = 32768
+    q, k, v = qkv(1, s, s, hq, hkv, d, torch.bfloat16)
+    lib = sdpa_call(q, k, v)
+    lib_err = float((flash_attention(q, k, v, causal=True).float()
+                     - lib().transpose(1, 2).float()).abs().max())
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), reps=3,
+                 warmup=1)
+    lib_ms = time_ms(lib, reps=3, warmup=1)
+    b_ms, b_by = flash_bound(1, s, hq, hkv, d)
+    print(f"kernel flash_attention B=1 S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
+          f"causal: against SDPA max|err| {lib_err:.3g}, ms {ms:.3f}, "
+          f"library_ms {lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}), "
+          f"{ms / lib_ms:.1f}x the library")
+
+
 # --------------------------------------------------------------------------
 # phases 4-5: the loop
 # --------------------------------------------------------------------------
@@ -520,6 +837,12 @@ def run_main_path(profile: bool = False) -> dict:
                                        if r.detections else None)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
+        # the bf16 SphIoU option on the same padded rows, outside the
+        # tick's timing: its keep flips against the float32 suppression
+        keep16 = sph_nms_batch(boxes, scores, mask, backend="cuda",
+                               iou_dtype=torch.bfloat16)
+        check(not keep16[~mask].any(), "bf16 NMS kept a padded entry")
+        flips16 = int((keep16 != keep).sum())
         n = check_detections(results)
         total_dets += n
         ph = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
@@ -528,7 +851,8 @@ def run_main_path(profile: bool = False) -> dict:
               f"{boxes.shape[0]}x{boxes.shape[1]}, detections {raw} -> "
               f"{[len(r.detections) for r in results]}, wall ms "
               f"{sum(ph):.1f} (begin_frame {ph[0]:.1f}, launch {ph[1]:.1f}, "
-              f"resolve {ph[2]:.1f}, finish + NMS {ph[3]:.1f})")
+              f"resolve {ph[2]:.1f}, finish + NMS {ph[3]:.1f}); bf16 SphIoU "
+              f"option: {flips16} keep flips of {int(mask.sum())} boxes")
         if profile and f == 3:
             print_profile(prof, sum(ph))
     counts["batched"] = _build.launch_counts()
@@ -537,23 +861,192 @@ def run_main_path(profile: bool = False) -> dict:
           f"misses; {backend.trace_count} (variant, batch) shapes")
     check(total_dets > 0, "the batched ticks produced no detections")
     launches = {k: counts["per_request"].get(k, 0) + counts["batched"].get(k, 0)
-                for k in KERNELS}
+                for k in KERNELS if k not in LM_KERNELS}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
     return launches
 
 
-def print_profile(prof, wall_ms: float) -> None:
-    """Device busy time of one profiled tick, against its wall time, and
-    the kernels that took most of it."""
+# --------------------------------------------------------------------------
+# phase 6: the LM serving path
+# --------------------------------------------------------------------------
+
+
+def run_lm_path(profile: bool = False) -> dict:
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import smollm_135m
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    from repro_torch.models import layers as L
+    from repro_torch.training.steps import lm_decode_step, lm_prefill_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(smollm_135m.full_config(),
+                              attention_impl="flash")
+    dev = torch.device("cuda")
+    params = T.init_params(torch.Generator(device=dev).manual_seed(12), cfg,
+                           device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"LM path: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e6:.1f}M bf16 parameters (random, seeded), "
+          f"attention_impl=flash, init {time.perf_counter() - t0:.1f}s")
+    b, s, n_dec = 4, 2048, 32
+    s_long = LM_SHAPES["prefill_32k"].seq_len
+    tok_gen = torch.Generator(device=dev).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=tok_gen,
+                           device=dev)
+    long_tokens = torch.randint(0, cfg.vocab_size, (1, s_long),
+                                generator=tok_gen, device=dev)
+    prefill = lm_prefill_step(cfg, s + n_dec)
+    decode = lm_decode_step(cfg)
+    prefill(params, {"tokens": tokens[:, :256]})  # warm-up: handles, library
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    out = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    logits = out["logits"].clone()
+    finite = torch.isfinite(logits).all()
+    token = logits.argmax(-1)
+    generated = []
+    t = time.perf_counter()
+    for _ in range(n_dec):
+        generated.append(token)
+        out = decode(params, {"token": token, "cache_k": out["k"],
+                              "cache_v": out["v"], "cache_len": out["length"]})
+        finite &= torch.isfinite(out["logits"]).all()
+        token = out["logits"].argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / n_dec
+    check(int(out["length"]) == s + n_dec, "decode: cache length")
+    t = time.perf_counter()
+    long_out = lm_prefill_step(cfg, s_long)(params, {"tokens": long_tokens})
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t) * 1e3
+    finite &= torch.isfinite(long_out["logits"]).all()
+    launches = _build.launch_counts()
+    check(bool(finite), "the LM path gave non-finite logits")
+    digest = hashlib.sha256(torch.stack(generated, 1).cpu().numpy()
+                            .astype("int64").tobytes()).hexdigest()[:16]
+    print(f"LM prefill B={b} S={s}: {prefill_ms:.1f} ms for the step, "
+          f"prefill ms per request {prefill_ms / b:.1f}")
+    print(f"LM decode B={b}, {n_dec} greedy steps after the {s}-token "
+          f"prompt: decode ms per token {decode_ms:.2f}")
+    print(f"LM generated tokens (B={b} x {n_dec}) sha256 {digest}; first "
+          f"row {torch.stack(generated, 1)[0, :8].tolist()}")
+    print(f"LM prefill B=1 S={s_long} (prefill_32k's length; its batch of "
+          f"32 cut to 1 for the smoke's time): prefill ms per request "
+          f"{long_ms:.1f}")
+    print(f"LM launches: {launches} over 2 prefill calls of {cfg.n_layers} "
+          f"layers ({cfg.n_layers} a call)")
+    check(launches.get("flash_attention", 0) == 2 * cfg.n_layers,
+          f"flash_attention launched {launches.get('flash_attention', 0)} "
+          f"times on the LM path, not {2 * cfg.n_layers}")
+
+    # comparisons, after the counts are read: the same step under the
+    # chunked plain version, and layer 0's attention at 32k
+    chunked = dataclasses.replace(cfg, attention_impl="chunked")
+    ref = lm_prefill_step(chunked, s + n_dec)(params, {"tokens": tokens})
+    err = float((logits - ref["logits"]).abs().max())
+    agree = float((logits.argmax(-1) == ref["logits"].argmax(-1)).float()
+                  .mean())
+    print(f"LM prefill B={b} S={s} logits against attention_impl=chunked: "
+          f"max|err| {err:.3g} (tol {LM_LOGIT_ATOL}), next-token agreement "
+          f"{agree:.2f}")
+    check(err <= LM_LOGIT_ATOL, f"LM logits against chunked: {err}")
+    # each layer's attention on the model's own activations, the chunked
+    # step's, against the chunked plain version, and the control at layer 0
+    worst, worst_at = -1.0, 0
+    with torch.no_grad():
+        x = L.embedding(params["embed"], tokens, cfg.policy)
+        positions = torch.arange(s, device=dev)
+        for i in range(cfg.n_layers):
+            lp = T._layer_params(params, i)
+            q, k, v = T._qkv(lp, x, cfg, positions)
+            a_ref = T.attention(q, k, v, chunked, causal=True)
+            a_flash = T.attention(q, k, v, cfg, causal=True)
+            if i == 0:
+                readings = check_attn_bf16(
+                    a_flash, a_ref, attention_dropping_tile(q, k, v, s // 2),
+                    f"LM prefill B={b} S={s} layer 0 attention")
+            ex = attn_excess(a_flash, a_ref)
+            if ex > worst:
+                worst, worst_at = ex, i
+            x = T._finish_block(lp, x, a_ref, cfg)
+    print(f"LM prefill B={b} S={s} attention of each of {cfg.n_layers} "
+          f"layers against the chunked plain version: |err| - 2^-7 |ref| at "
+          f"most {worst:.3g}, at layer {worst_at} (limit {ATTN_BF16_ATOL}); "
+          f"layer 0: {readings}")
+    check(worst <= ATTN_BF16_ATOL,
+          f"LM prefill attention of layer {worst_at} against chunked: "
+          f"|err| exceeds 2^-7 |ref| by {worst}")
+    with torch.no_grad():
+        lp = T._layer_params(params, 0)
+        x = L.embedding(params["embed"], long_tokens, cfg.policy)
+        q, k, v = T._qkv(lp, x, cfg, torch.arange(s_long, device=dev))
+        a_flash = T.attention(q, k, v, cfg, causal=True)
+        a_ref = T.attention(q, k, v, chunked, causal=True)
+        err0 = float((a_flash.float() - a_ref.float()).abs().max())
+        readings = check_attn_bf16(
+            a_flash, a_ref, attention_dropping_tile(q, k, v, s_long // 2),
+            f"LM prefill S={s_long} layer 0 attention")
+    print(f"LM prefill S={s_long} layer-0 attention against the chunked "
+          f"plain version: max|err| {err0:.3g}, {readings}")
+    if profile:
+        profile_lm(prefill, decode, params, tokens)
+    return {k: launches.get(k, 0) for k in LM_KERNELS}
+
+
+def profile_lm(prefill, decode, params, tokens, n_dec: int = 4) -> None:
+    """One prefill step and ``n_dec`` decode steps under the profiler:
+    the card's busy share of each, and their top kernels."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        out = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    print_profile(prof, wall, f"one LM prefill step (B={tokens.shape[0]}, "
+                  f"S={tokens.shape[1]})", top=8)
+    token = out["logits"].argmax(-1)
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(n_dec):
+            out = decode(params, {"token": token, "cache_k": out["k"],
+                                  "cache_v": out["v"],
+                                  "cache_len": out["length"]})
+            token = out["logits"].argmax(-1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    print_profile(prof, wall, f"{n_dec} LM decode steps (B="
+                  f"{tokens.shape[0]})", top=8)
+
+
+def print_profile(prof, wall_ms: float, what: str = "tick 3",
+                  top: int = 12) -> None:
+    """Device busy time of one profiled window, against its wall time,
+    and the kernels that took most of it."""
     from torch.autograd import DeviceType
 
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(r[0] for r in rows)
-    print(f"profile of tick 3: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
-          f"wall ({100 * busy / wall_ms:.1f}%)")
-    for ms, n, name in sorted(rows, reverse=True)[:12]:
+    n_kernels = sum(r[1] for r in rows)
+    print(f"profile of {what}: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+          f"wall ({100 * busy / wall_ms:.1f}%), {n_kernels} device ops")
+    for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
 
 
@@ -593,8 +1086,12 @@ def main() -> int:
     check_gnomonic(records)
     check_project_srois(records)
     check_nms(records)
+    check_sphiou_bf16(records)
+    check_flash(records)
     check_small_input()
-    launches = run_main_path(profile="--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    launches = run_main_path(profile=profile)
+    launches.update(run_lm_path(profile=profile))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

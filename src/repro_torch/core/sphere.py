@@ -298,21 +298,38 @@ def nms_auto_backend(b: int, n: int) -> str:
     return "cuda" if torch.cuda.is_available() and pod_scale else "host"
 
 
+def _iou_compute_dtype(iou_dtype) -> torch.dtype | None:
+    """``iou_dtype`` as the SphIoU's reduced compute dtype: ``None`` (or
+    float32) for float32, else bfloat16, the one the kernel offers."""
+    if iou_dtype is None or iou_dtype == torch.float32:
+        return None
+    if iou_dtype == torch.bfloat16:
+        return torch.bfloat16
+    raise ValueError(f"iou_dtype {iou_dtype!r} is not torch.bfloat16")
+
+
 def _sph_nms_batch_torch(boxes: Tensor, scores: Tensor, mask: Tensor,
-                         iou_threshold: float, use_kernels: bool) -> Tensor:
-    """(B, N) keep-mask of float32 rows on one device: batched SphIoU,
-    then the per-row greedy suppression — the CUDA kernels, or their
-    plain PyTorch versions."""
+                         iou_threshold: float, use_kernels: bool,
+                         iou_dtype: torch.dtype | None = None) -> Tensor:
+    """(B, N) keep-mask of float32 rows on one device: batched SphIoU
+    (float32, or computed in ``iou_dtype``), then the per-row greedy
+    suppression — the CUDA kernels, or their plain PyTorch versions."""
     if use_kernels:
         from repro_torch.kernels.nms.ops import greedy_suppress_rows
         from repro_torch.kernels.sphiou.ops import sphiou_matrix_batch
 
-        iou = sphiou_matrix_batch(boxes, boxes)
+        iou = sphiou_matrix_batch(boxes, boxes,
+                                  dtype=iou_dtype or torch.float32)
         return greedy_suppress_rows(iou, scores, mask, iou_threshold)
     from repro_torch.kernels.nms.ref import greedy_suppress_rows_ref
 
-    return greedy_suppress_rows_ref(sph_iou_matrix(boxes, boxes), scores,
-                                    mask, iou_threshold)
+    if iou_dtype is not None:
+        # the reference's jit path: the framework SphIoU on cast boxes
+        low = boxes.to(iou_dtype)
+        iou = sph_iou_matrix(low, low).to(torch.float32)
+    else:
+        iou = sph_iou_matrix(boxes, boxes)
+    return greedy_suppress_rows_ref(iou, scores, mask, iou_threshold)
 
 
 def _apply_max_out_np(
@@ -349,8 +366,11 @@ def sph_nms_batch(
     ``cuda`` backend needs a CUDA device.  Rows are independent, so the
     device paths process very large batches in row chunks.
 
-    ``iou_dtype`` (the reference's reduced-precision SphIoU) is not
-    ported yet; any value but ``None`` raises.
+    ``iou_dtype`` (``torch`` and ``cuda`` backends only; the host path
+    raises ``ValueError``) lowers the IoU compute precision:
+    ``torch.bfloat16`` runs the SphIoU kernel's bf16 entry (``cuda``) or
+    the framework SphIoU on bf16 boxes (``torch``, the reference's
+    ``jit`` path).  Near-threshold pairs can flip their keep decision.
     """
     boxes = np.asarray(boxes)
     scores = np.asarray(scores)
@@ -366,12 +386,10 @@ def sph_nms_batch(
         backend = nms_auto_backend(b, n)
     if backend == "host":
         if iou_dtype is not None:
-            raise ValueError("iou_dtype needs the device or jit backend")
+            raise ValueError("iou_dtype needs the torch or cuda backend")
         keep = _sph_nms_batch_host(boxes, scores, mask, iou_threshold)
     elif backend in ("torch", "cuda"):
-        if iou_dtype is not None:
-            raise NotImplementedError(
-                "the reduced-precision SphIoU (iou_dtype) is not ported")
+        low = _iou_compute_dtype(iou_dtype)
         dev = resolve_device(device)
         if backend == "cuda" and dev.type != "cuda":
             raise ValueError(f"backend 'cuda' needs a CUDA device, got {dev}")
@@ -384,7 +402,8 @@ def sph_nms_batch(
                 torch.as_tensor(scores[lo:hi], dtype=torch.float32,
                                 device=dev),
                 torch.as_tensor(mask[lo:hi], device=dev),
-                iou_threshold, use_kernels=backend == "cuda").cpu().numpy())
+                iou_threshold, use_kernels=backend == "cuda",
+                iou_dtype=low).cpu().numpy())
         keep = np.concatenate(parts, axis=0)
     else:
         raise ValueError(f"unknown backend {backend!r}")

@@ -23,7 +23,16 @@
 // 8 rows of one row's matrix, so a warp writes 32 consecutive floats.  The
 // block stages its 8 + 32 boxes in shared memory once.  The batch is the
 // grid's z axis.
+//
+// The bf16 option (the reference's dtype=bfloat16, sphiou.py _iou_tile):
+// inputs and outputs stay float32, the boxes are rounded to bf16, and every
+// intermediate of _iou_tile/_intersection is rounded to bf16 after its
+// operation, as a chain of bf16 elementwise ops rounds each result.  The
+// arithmetic itself runs in float32 (the card has no bf16 transcendentals),
+// so the option changes the numbers, not the speed: it exists to give the
+// reference's keep decisions, and its flips against float32 are gated.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -55,6 +64,37 @@ __device__ __forceinline__ float intersection(float ta, float pa, float ha,
   return lon_w * fmaxf(lat_w, 0.0f);
 }
 
+// round to bf16 and back: one bf16 elementwise result
+__device__ __forceinline__ float r16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// intersection() with every intermediate rounded to bf16, in the order of
+// the reference's expressions; the inputs are bf16 values already
+__device__ __forceinline__ float intersection_bf16(float ta, float pa,
+                                                   float ha, float va,
+                                                   float tb, float pb,
+                                                   float hb, float vb) {
+  const float dt = r16(tb - ta);
+  const float cpa = r16(cosf(pa)), spa = r16(sinf(pa));
+  const float cpb = r16(cosf(pb)), spb = r16(sinf(pb));
+  const float cdt = r16(cosf(dt));
+  const float x = r16(r16(r16(cpa * cpb) * cdt) + r16(spa * spb));
+  const float y = r16(cpb * r16(sinf(dt)));
+  const float z = r16(r16(r16(-spa * cpb) * cdt) + r16(cpa * spb));
+  const float dlon = r16(atan2f(y, x));
+  const float dlat = r16(asinf(fminf(fmaxf(z, -1.0f), 1.0f)));
+  const float lon_lo = fmaxf(-ha, r16(dlon - hb));
+  const float lon_hi = fminf(ha, r16(dlon + hb));
+  const float lat_lo = fmaxf(-va, r16(dlat - vb));
+  const float lat_hi = fminf(va, r16(dlat + vb));
+  const float lon_w = fmaxf(r16(lon_hi - lon_lo), 0.0f);
+  const float lat_w =
+      lat_hi > lat_lo ? r16(r16(sinf(lat_hi)) - r16(sinf(lat_lo))) : 0.0f;
+  return r16(lon_w * fmaxf(lat_w, 0.0f));
+}
+
+template <bool kBf16>
 __global__ void sphiou_batch_kernel(const float* __restrict__ a,
                                     const float* __restrict__ b,
                                     float* __restrict__ out, int N, int M) {
@@ -79,6 +119,23 @@ __global__ void sphiou_batch_kernel(const float* __restrict__ a,
   const int j = j0 + threadIdx.x;
   if (i >= N || j >= M) return;
 
+  float* const o = out + (static_cast<size_t>(row) * N + i) * M + j;
+  if constexpr (kBf16) {
+    const float ta = r16(sa[threadIdx.y][0]), pa = r16(sa[threadIdx.y][1]);
+    const float ha = r16(r16(sa[threadIdx.y][2]) * 0.5f);
+    const float va = r16(r16(sa[threadIdx.y][3]) * 0.5f);
+    const float tb = r16(sb[threadIdx.x][0]), pb = r16(sb[threadIdx.x][1]);
+    const float hb = r16(r16(sb[threadIdx.x][2]) * 0.5f);
+    const float vb = r16(r16(sb[threadIdx.x][3]) * 0.5f);
+    const float inter =
+        r16(0.5f * r16(intersection_bf16(ta, pa, ha, va, tb, pb, hb, vb) +
+                       intersection_bf16(tb, pb, hb, vb, ta, pa, ha, va)));
+    const float area_a = r16(r16(4.0f * ha) * r16(sinf(va)));
+    const float area_b = r16(r16(4.0f * hb) * r16(sinf(vb)));
+    const float uni = r16(r16(area_a + area_b) - inter);
+    *o = r16(inter / fmaxf(uni, r16(1e-12f)));
+    return;
+  }
   const float ta = sa[threadIdx.y][0], pa = sa[threadIdx.y][1];
   const float ha = sa[threadIdx.y][2] * 0.5f, va = sa[threadIdx.y][3] * 0.5f;
   const float tb = sb[threadIdx.x][0], pb = sb[threadIdx.x][1];
@@ -89,8 +146,19 @@ __global__ void sphiou_batch_kernel(const float* __restrict__ a,
                               intersection(tb, pb, hb, vb, ta, pa, ha, va));
   const float area_a = 4.0f * ha * sinf(va);  // 2 * dtheta * sin(dphi / 2)
   const float area_b = 4.0f * hb * sinf(vb);
-  out[(static_cast<size_t>(row) * N + i) * M + j] =
-      inter / fmaxf(area_a + area_b - inter, 1e-12f);
+  *o = inter / fmaxf(area_a + area_b - inter, 1e-12f);
+}
+
+template <bool kBf16>
+int launch(const void* a, const void* b, void* out, int B, int N, int M,
+           void* stream) {
+  const dim3 block(kTileJ, kTileI);
+  const dim3 grid((M + kTileJ - 1) / kTileJ, (N + kTileI - 1) / kTileI, B);
+  sphiou_batch_kernel<kBf16>
+      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b),
+          static_cast<float*>(out), N, M);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -100,12 +168,13 @@ extern "C" {
 // a (B, N, 4), b (B, M, 4) float32 -> out (B, N, M) float32.
 int sphiou_batch_f32(const void* a, const void* b, void* out, int B, int N,
                      int M, void* stream) {
-  const dim3 block(kTileJ, kTileI);
-  const dim3 grid((M + kTileJ - 1) / kTileJ, (N + kTileI - 1) / kTileI, B);
-  sphiou_batch_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(out), N, M);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(a, b, out, B, N, M, stream);
+}
+
+// The same with bf16 compute (float32 in and out).
+int sphiou_batch_bf16(const void* a, const void* b, void* out, int B, int N,
+                      int M, void* stream) {
+  return launch<true>(a, b, out, B, N, M, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,13 @@
-"""The layers the CSP detector uses (port of the matching subset of
-``repro.models.layers``).
+"""The layers the CSP detector and the LM use (port of the matching
+subset of ``repro.models.layers``).
 
 Params are plain nested dicts of tensors, as in the reference.  The
 public layout follows the reference too: activations are channel-last
-``(N, H, W, C)``.  Internally the convolutions run channel-first, so
-:func:`conv2d` takes and returns NCHW and its weight is OIHW; the
-detector permutes once at its boundary (``models/detector.py``).
-Weights are drawn from an explicit ``torch.Generator``.
+``(N, H, W, C)``, and a dense weight is ``(d_in, d_out)``.  Internally
+the convolutions run channel-first, so :func:`conv2d` takes and returns
+NCHW and its weight is OIHW; the detector permutes once at its boundary
+(``models/detector.py``).  Weights are drawn from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ class DtypePolicy:
 
 
 F32 = DtypePolicy()
+BF16 = DtypePolicy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
 
 def _uniform_init(gen: torch.Generator, shape, scale, dtype, device):
@@ -40,8 +42,57 @@ def _uniform_init(gen: torch.Generator, shape, scale, dtype, device):
 
 
 # --------------------------------------------------------------------------
+# Dense / embedding
+# --------------------------------------------------------------------------
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
+               bias: bool = True, dtype=torch.float32, device="cpu"
+               ) -> Params:
+    """A ``(d_in, d_out)`` weight, uniform in +-sqrt(1 / d_in)."""
+    p = {"w": _uniform_init(gen, (d_in, d_out), math.sqrt(1.0 / d_in),
+                            dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p: Params, x: Tensor, policy: DtypePolicy = F32) -> Tensor:
+    """``x @ w (+ b)`` in the compute dtype; a bf16 product accumulates in
+    float32 and rounds once, as the reference's ``preferred_element_type``
+    does."""
+    y = torch.matmul(policy.cast_in(x), p["w"].to(policy.compute_dtype))
+    if "b" in p:
+        y = y + p["b"].to(policy.compute_dtype)
+    return y
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32, device="cpu") -> Params:
+    emb = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                      device=gen.device)
+    return {"emb": emb.to(device=device, dtype=dtype) * 0.02}
+
+
+def embedding(p: Params, ids: Tensor, policy: DtypePolicy = F32) -> Tensor:
+    return p["emb"].to(policy.compute_dtype)[ids]
+
+
+# --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, dtype=torch.float32, device="cpu") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMSNorm over the last axis, in float32, cast back to ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
 
 
 def init_groupnorm(d: int, groups: int = 32, dtype=torch.float32,
@@ -122,3 +173,35 @@ def upsample_nearest(x: Tensor, factor: int = 2) -> Tensor:
 
 def mish(x: Tensor) -> Tensor:
     return x * torch.tanh(F.softplus(x))
+
+
+def silu(x: Tensor) -> Tensor:
+    return F.silu(x)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_frequencies(d_head: int, theta: float = 10000.0,
+                     device="cpu") -> Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
+    """x: (B, S, H, D) with D even; positions: (B, S) or (S,).
+
+    The head splits in halves (not interleaved pairs); the rotation runs
+    in float32 and casts back to ``x``'s dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (D/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].to(torch.float32) * freqs  # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return y.to(x.dtype)

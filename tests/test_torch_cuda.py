@@ -5,11 +5,15 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the gnomonic sampler and SphIoU are the reference's own
-(``tests/test_kernels.py``); the batched projection is held to the
-float64 map (``project_sroi_f64``) where a pole is in the crop, since
-there two float32 maps differ by more than any fixed bound; the greedy
-keep masks are equal exactly.
+Tolerances: the gnomonic sampler, SphIoU and flash attention are the
+reference's own (``tests/test_kernels.py``), and bf16 flash attention is
+also held to one bf16 ulp of its plain version plus 2e-5; the batched
+projection is held to the float64 map (``project_sroi_f64``) where a
+pole is in the crop, since there two float32 maps differ by more than
+any fixed bound; the greedy keep masks are equal exactly; the bf16
+SphIoU option is held to its bf16 plain version within 2^-6 (a few bf16
+ulps of an IoU) and to the float32 kernel's keep masks by the
+reference's flip gate.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from repro_torch.core import sphere as tsphere
 from repro_torch.core.sroi import SRoI
 from repro_torch.data.synthetic import make_video, render_erp
 from repro_torch.kernels import _build
+from repro_torch.kernels.attention import ops as tattn
+from repro_torch.kernels.attention.ref import flash_attention_ref
 from repro_torch.kernels.gnomonic import ops as tgno
 from repro_torch.kernels.gnomonic.ref import (gnomonic_sample_ref,
                                               project_sroi_f64,
@@ -33,7 +39,8 @@ from repro_torch.kernels.gnomonic.ref import (gnomonic_sample_ref,
 from repro_torch.kernels.nms import ops as tnms
 from repro_torch.kernels.nms.ref import greedy_suppress_rows_ref
 from repro_torch.kernels.sphiou import ops as tsph
-from repro_torch.kernels.sphiou.ref import sphiou_ref_batch
+from repro_torch.kernels.sphiou.ref import (sphiou_ref_batch,
+                                            sphiou_ref_batch_bf16)
 from repro_torch.models import detector as tdet
 from repro_torch.serving.scheduler import TorchDetectorBackend
 
@@ -128,6 +135,111 @@ def test_cuda_sphiou_and_greedy(cuda, b, n):
         tsphere.sph_nms_batch(boxes, scores, mask, backend="torch"))
 
 
+# the reference's bf16 gate (tests/test_fused_tick.py)
+BF16_FLIP_BOUND = 0.01
+BF16_NEAR_MARGIN = 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(3, 37), (32, 512)])
+def test_cuda_sphiou_bf16(cuda, b, n):
+    rng = np.random.default_rng(b + n)
+    boxes = np.stack([rng.uniform(-3, 3, (b, n)),
+                      rng.uniform(-1.2, 1.2, (b, n)),
+                      rng.uniform(0.05, 1.2, (b, n)),
+                      rng.uniform(0.05, 1.2, (b, n))], -1)
+    bx = torch.tensor(boxes, dtype=torch.float32, device=cuda)
+    got = tsph.sphiou_matrix_batch(bx, bx, dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, sphiou_ref_batch_bf16(bx, bx),
+                               atol=2.0 ** -6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_sphiou_bf16_flip_gate(cuda):
+    """bf16 keep masks against the float32 kernel's, on the reference
+    bench's box sets (``benchmarks/kernels_bench.py``)."""
+    flips = total = 0
+    for trial in range(10):
+        rng = np.random.default_rng(trial)
+        boxes = np.stack([rng.uniform(-3, 3, (8, 24)),
+                          rng.uniform(-1.2, 1.2, (8, 24)),
+                          rng.uniform(0.3, 1.2, (8, 24)),
+                          rng.uniform(0.3, 1.2, (8, 24))], -1
+                         ).astype(np.float32)
+        scores = rng.uniform(0.1, 1, (8, 24)).astype(np.float32)
+        k32 = tsphere.sph_nms_batch(boxes, scores, backend="cuda")
+        k16 = tsphere.sph_nms_batch(boxes, scores, backend="cuda",
+                                    iou_dtype=torch.bfloat16)
+        diff = k32 != k16
+        iou = np.stack([tsphere.sph_iou_matrix_np(r.astype(np.float64),
+                                                  r.astype(np.float64))
+                        for r in boxes])
+        near = np.abs(iou - 0.6) <= BF16_NEAR_MARGIN
+        np.einsum("bii->bi", near)[:] = False
+        assert not (diff.any(axis=1) & ~near.any(axis=(1, 2))).any()
+        flips += int(diff.sum())
+        total += diff.size
+    assert flips / total <= BF16_FLIP_BOUND
+
+
+FLASH_CASES = [
+    dict(b=2, sq=64, skv=64, hq=4, hkv=4, d=32, causal=True, window=None),
+    dict(b=1, sq=128, skv=128, hq=8, hkv=2, d=64, causal=True, window=None),
+    dict(b=1, sq=96, skv=96, hq=2, hkv=2, d=32, causal=True, window=32),
+    dict(b=2, sq=1, skv=200, hq=4, hkv=1, d=32, causal=True, window=None),
+    dict(b=1, sq=64, skv=64, hq=2, hkv=2, d=32, causal=False, window=None),
+    dict(b=1, sq=80, skv=160, hq=2, hkv=2, d=16, causal=True, window=64),
+    # smollm-135m's attention shape, and a head size of 128
+    dict(b=1, sq=1000, skv=1000, hq=9, hkv=3, d=64, causal=True, window=None),
+    dict(b=1, sq=200, skv=200, hq=2, hkv=1, d=128, causal=True, window=None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention(cuda, case, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(case["sq"] + case["d"])
+
+    def mk(s, h):
+        return torch.randn((case["b"], s, h, case["d"]), generator=gen,
+                           device=cuda).to(dtype)
+    q, k, v = mk(case["sq"], case["hq"]), mk(case["skv"], case["hkv"]), \
+        mk(case["skv"], case["hkv"])
+    qoff = case["skv"] - case["sq"] if case["causal"] else 0
+    kw = dict(causal=case["causal"], window=case["window"], q_offset=qoff)
+    got = tattn.flash_attention(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = flash_attention_ref(q, k, v, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=3e-2,
+                                   rtol=0)
+        # and within one bf16 ulp of the plain version plus the float32
+        # sums' own difference (chip_smoke.py's ATTN_BF16_ATOL)
+        excess = (got.float() - ref.float()).abs() \
+            - 2.0 ** -7 * ref.float().abs()
+        assert float(excess.max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_views(cuda):
+    """q, k and v as views into a packed qkv tensor (no copy), and a q
+    window of a longer sequence (q_offset)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn((2, 70, 9 + 3 + 3, 32), generator=gen, device=cuda)
+    q, k, v = qkv[:, 40:, :9], qkv[:, :, 9:12], qkv[:, :, 12:]
+    assert not q.is_contiguous()
+    got = tattn.flash_attention(q, k, v, causal=True, q_offset=40)
+    torch.testing.assert_close(
+        got, flash_attention_ref(q, k, v, causal=True, q_offset=40),
+        atol=2e-5, rtol=1e-4)
+    with pytest.raises(ValueError, match="head size"):
+        tattn.flash_attention(qkv[..., :24], qkv[..., :24], qkv[..., :24])
+
+
 @pytest.mark.cuda
 def test_cuda_launches_are_counted(cuda):
     _build.reset_launch_counts()
@@ -136,6 +248,13 @@ def test_cuda_launches_are_counted(cuda):
     assert _build.launch_counts() == {"sphiou_matrix_batch": 1}
     tsph.sphiou_matrix_batch(bx.cpu(), bx.cpu())  # the plain version
     assert _build.launch_counts() == {"sphiou_matrix_batch": 1}
+    tsph.sphiou_matrix_batch(bx, bx, dtype=torch.bfloat16)
+    q = torch.zeros((1, 3, 2, 16), device=cuda)
+    tattn.flash_attention(q, q, q)
+    tattn.flash_attention(q.cpu(), q.cpu(), q.cpu())  # the plain version
+    assert _build.launch_counts() == {"sphiou_matrix_batch": 1,
+                                      "sphiou_matrix_batch_bf16": 1,
+                                      "flash_attention": 1}
 
 
 @pytest.mark.cuda

@@ -34,6 +34,8 @@ def test_every_module_imports_without_jax_or_reference():
     mods = _modules()
     assert "repro_torch.serving.scheduler" in mods
     assert "repro_torch.kernels.gnomonic.ops" in mods
+    assert "repro_torch.kernels.attention.ops" in mods
+    assert "repro_torch.models.transformer" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -182,6 +182,26 @@ def test_sphiou_matrix_batch_matches_reference(b, n, m):
     np.testing.assert_allclose(got.numpy(), ref, atol=5e-6)
 
 
+@pytest.mark.parametrize("b,n,m", [(1, 8, 8), (3, 17, 9), (4, 64, 64)])
+def test_sphiou_matrix_batch_bf16_matches_reference(b, n, m):
+    """The bf16 compute option against the reference kernel's.  Both
+    round every intermediate to bf16, but XLA and PyTorch do not always
+    round at the same places, so an IoU may differ by a few bf16 ulps
+    (2^-8 in [0.5, 1)): atol 2^-6, where both are up to ~0.02 from the
+    float32 IoU."""
+    rng = np.random.default_rng(b * 100 + n)
+    a, bb = _boxes(rng, (b, n)), _boxes(rng, (b, m))
+    ref = np.asarray(jsph.sphiou_matrix_batch(jnp.asarray(a), jnp.asarray(bb),
+                                              dtype=jnp.bfloat16))
+    got = tsph.sphiou_matrix_batch(torch.from_numpy(a), torch.from_numpy(bb),
+                                   dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=2.0 ** -6)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tsph.sphiou_matrix_batch(torch.from_numpy(a), torch.from_numpy(bb),
+                                 dtype=torch.float16)
+
+
 def test_sphiou_diag_is_one_and_rows_independent():
     rng = np.random.default_rng(3)
     a = torch.from_numpy(_boxes(rng, (3, 32)))

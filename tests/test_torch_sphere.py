@@ -1,6 +1,7 @@
 """``repro_torch.core.sphere`` against ``repro.core.sphere``: the torch
-geometry within 1e-6, and every ``sph_nms_batch`` backend's keep masks
-equal to the reference's."""
+geometry within 1e-6, every float32 ``sph_nms_batch`` backend's keep
+masks equal to the reference's, and the bf16 option (``iou_dtype``)
+under the reference's flip gate."""
 
 from __future__ import annotations
 
@@ -118,9 +119,18 @@ def test_sph_nms_batch_auto_and_errors():
     assert tsphere.sph_nms_batch(boxes[:, :0], scores[:, :0]).shape == (2, 0)
     with pytest.raises(ValueError):
         tsphere.sph_nms_batch(boxes, scores, backend="bogus")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="iou_dtype"):
         tsphere.sph_nms_batch(boxes, scores, backend="torch", device="cpu",
                               iou_dtype="bfloat16")
+    with pytest.raises(ValueError, match="iou_dtype"):
+        tsphere.sph_nms_batch(boxes, scores, backend="host",
+                              iou_dtype=torch.bfloat16)
+    # float32 asked for by name is the default path
+    np.testing.assert_array_equal(
+        tsphere.sph_nms_batch(boxes, scores, mask, backend="torch",
+                              device="cpu", iou_dtype=torch.float32),
+        tsphere.sph_nms_batch(boxes, scores, mask, backend="torch",
+                              device="cpu"))
     with pytest.raises(ValueError):
         tsphere.sph_nms_batch(boxes, scores, backend="cuda", device="cpu")
     if not torch.cuda.is_available():
@@ -159,3 +169,74 @@ def test_pad_detection_rows_matches_reference():
     for got, ref in zip(tsphere.pad_detection_rows(rows_t, lambda n: 8, 4),
                         jsphere.pad_detection_rows(rows_j, lambda n: 8, 4)):
         np.testing.assert_array_equal(got, ref)
+
+
+# the reference's bf16 gate (tests/test_fused_tick.py,
+# benchmarks/kernels_bench.py): keep flips against float32 at most 1%, and
+# none on a row with no IoU pair within 0.05 of the threshold
+BF16_FLIP_BOUND = 0.01
+BF16_NEAR_MARGIN = 0.05
+FLIPPING_TRIAL = 0  # a box set where bf16 flips keep decisions (3 of 192)
+
+
+def _bench_boxes(trial, b=8, n=24):
+    """The reference bench's box sets (``benchmarks/kernels_bench.py``)."""
+    rng = np.random.default_rng(trial)
+    boxes = np.stack([rng.uniform(-3, 3, (b, n)),
+                      rng.uniform(-1.2, 1.2, (b, n)),
+                      rng.uniform(0.3, 1.2, (b, n)),
+                      rng.uniform(0.3, 1.2, (b, n))], -1).astype(np.float32)
+    return boxes, rng.uniform(0.1, 1, (b, n)).astype(np.float32)
+
+
+def _far_rows(boxes):
+    iou = np.stack([jsphere.sph_iou_matrix_np(r.astype(np.float64),
+                                              r.astype(np.float64))
+                    for r in boxes])
+    near = np.abs(iou - 0.6) <= BF16_NEAR_MARGIN
+    np.einsum("bii->bi", near)[:] = False  # self-IoU is always 1
+    return ~near.any(axis=(1, 2))
+
+
+@pytest.mark.parametrize("against", ["reference_bf16", "float32"])
+def test_sph_nms_batch_bf16_flip_gate(against):
+    """The ``torch`` backend's bf16 option against the reference's ``jit``
+    bf16 path, and against the port's own float32 keep masks."""
+    flips = total = 0
+    for trial in range(10):
+        boxes, scores = _bench_boxes(trial)
+        got = tsphere.sph_nms_batch(boxes, scores, backend="torch",
+                                    device="cpu", iou_dtype=torch.bfloat16)
+        if against == "float32":
+            want = tsphere.sph_nms_batch(boxes, scores, backend="torch",
+                                         device="cpu")
+        else:
+            want = jsphere.sph_nms_batch(boxes, scores, backend="jit",
+                                         iou_dtype=jnp.bfloat16)
+        diff = got != want
+        assert not (diff.any(axis=1) & _far_rows(boxes)).any(), \
+            f"trial {trial}: bf16 flipped a row with no near-threshold pair"
+        flips += int(diff.sum())
+        total += diff.size
+    assert flips / total <= BF16_FLIP_BOUND
+
+
+def test_incremental_nms_passes_iou_dtype_on(monkeypatch):
+    boxes, scores = _bench_boxes(FLIPPING_TRIAL)
+    keys = list(range(len(boxes)))
+    with pytest.raises(ValueError, match="iou_dtype"):
+        tsphere.IncrementalNms(backend="host", iou_dtype=torch.bfloat16
+                               ).suppress(keys, boxes, scores)
+    # IncrementalNms takes no device: place its torch backend on the CPU
+    monkeypatch.setattr(tsphere, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    got = tsphere.IncrementalNms(backend="torch", iou_dtype=torch.bfloat16
+                                 ).suppress(keys, boxes, scores)
+    np.testing.assert_array_equal(
+        got, tsphere.sph_nms_batch(boxes, scores, backend="torch",
+                                   iou_dtype=torch.bfloat16))
+    np.testing.assert_array_equal(
+        got, jsphere.IncrementalNms(backend="jit", iou_dtype=jnp.bfloat16
+                                    ).suppress(keys, boxes, scores))
+    # a box set where bf16 flips a keep decision, so the option showed
+    assert (got != tsphere.sph_nms_batch(boxes, scores, backend="torch")).any()
