@@ -7,15 +7,21 @@ Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from the sources in the checkout (one ``nvcc``
-   per source, all started together);
+   per source, all started together), and print the tensor-core flash
+   kernel's ``-Xptxas -v`` report (registers, spills, shared memory);
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes: max |err| against the stated tolerance, the
    kernel's, the plain version's and (where one PyTorch call computes
    the same function) that call's time in ms, and the least time the
-   card could take (``bound_ms``).  Flash attention is checked on the
-   reference's six test cases in float32 and bf16 and at smollm-135m's
-   shape in float32 and bf16, with a control that must fail; the bf16 SphIoU option also against the float32 kernel's keep
-   masks (the reference's flip gate);
+   card could take (``bound_ms``).  Flash attention's two kernels are
+   checked on the reference's six test cases (the SIMT kernel in float32
+   and bf16 at their head sizes, the tensor-core kernel in bf16 at D=64
+   and D=128), at smollm-135m's 4x2048 shape (float32 on the SIMT
+   kernel, bf16 on both) and at 32k (the tensor-core kernel against the
+   SIMT one), each with a control that drops one K/V tile and must fail;
+   then the tensor-core kernel, the SIMT kernel, SDPA and the plain
+   version are timed in turn.  The bf16 SphIoU option is also checked
+   against the float32 kernel's keep masks (the reference's flip gate);
 4. a small input through the per-request path on the card and on the
    CPU: the same SRoIs and plans, PIs, detector heads and detection
    scores within tolerance;
@@ -38,13 +44,21 @@ Phases, in order; any failure exits non-zero:
    2048 tokens, 32 greedy ``lm_decode_step``s, then one prefill of
    32768 tokens (``prefill_32k``'s length; its batch cut from 32 to 1).
    Prefill ms per request, decode ms per token, the generated tokens'
-   digest and the kernel's launches are printed; logits must be finite,
+   digest and the kernels' launches are printed (the tensor-core kernel
+   2 x 30 times, the SIMT kernel never); logits must be finite,
    the 4x2048 prefill's logits must agree with the same step under
    ``attention_impl="chunked"``, the attention of each of its layers and
    the 32k prefill's layer-0 attention with the chunked plain version
    within one bf16 ulp and ``ATTN_BF16_ATOL``, a limit that a control
    with one K/V tile dropped must fail.  Launch counts are set to 0 before
-   the path and read after it.
+   the path and read after it.  Then the same model under the float32
+   policy (the reference's float32 path) prefills 1 x 2048 tokens, which
+   runs the SIMT kernel 30 times, counted on its own and held to the
+   chunked plain version's logits.
+
+``--flash-only`` stops after the flash kernels' checks and times (phase 3
+for attention alone), for comparing versions of the kernels; it prints no
+result line.
 
 ``--profile`` also profiles the last batched tick, one LM prefill step
 and four decode steps: the card's busy share of each and its top kernels.
@@ -88,6 +102,10 @@ BF16_IOU_ATOL = 2.0 ** -6
 # places (the kernel's output once, the chunked version's after its own
 # sum order); on the CPU at S=256 the two plain versions differ by 0.031
 LM_LOGIT_ATOL = 0.1
+# the same under the float32 policy (the SIMT kernel against the chunked
+# plain version, TF32 off): only the sums' order differs; on the H100 the
+# logits read 2.8e-6 apart
+LM_F32_LOGIT_ATOL = 1e-4
 # flash attention in bf16 against the float32 plain version rounded to
 # bf16: both sum in float32 and round once, so where they agree they
 # differ by one bf16 ulp of the value at most (2^-7 of it) plus the
@@ -122,9 +140,13 @@ KERNELS = {
     "flash_attention": (
         "src/repro_torch/kernels/attention/csrc/attention.cu",
         "src/repro/kernels/attention/attention.py:130"),
+    "flash_attention_wgmma": (
+        "src/repro_torch/kernels/attention/csrc/attention_wgmma.cu",
+        "src/repro/kernels/attention/attention.py:130 (bf16, D 64 and 128)"),
 }
-# the kernels the LM serving path runs; the frame loop runs the others
-LM_KERNELS = ("flash_attention",)
+# the kernels the LM serving path runs (bf16 on the tensor-core kernel,
+# the float32 policy on the SIMT one); the frame loop runs the others
+LM_KERNELS = ("flash_attention", "flash_attention_wgmma")
 
 
 class PhaseError(RuntimeError):
@@ -165,6 +187,20 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def print_ptxas(lines: list[str], kernel: str) -> None:
+    """The ``nvcc -Xptxas -v`` lines of the functions whose mangled name
+    holds ``kernel`` (registers, spills, shared memory), and any
+    warning."""
+    on = False
+    for ln in lines:
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            on = kernel in ln
+        elif ln.startswith("ptxas info") and "Used" not in ln:
+            on = False
+        if on or "warning" in ln.lower():
+            print(f"ptxas {ln}")
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS
@@ -501,12 +537,13 @@ def attn_excess(got, ref) -> float:
     return float(((g - r).abs() - ATTN_BF16_RTOL * r.abs()).max())
 
 
-def attention_dropping_tile(q, k, v, lo: int, rows: int = 2048):
-    """The control: causal GQA attention in float32, as the plain
-    version computes it, but blind to keys lo..lo+ATTN_DROPPED_TILE-1,
-    as a kernel that skipped that K/V tile would be; by blocks of
-    ``rows`` queries, so the scores of a 32k sequence fit.  Output in q's
-    dtype."""
+def attention_dropping_tile(q, k, v, lo: int, *, causal: bool = True,
+                            window: int | None = None, q_offset: int = 0,
+                            rows: int = 2048):
+    """The control: GQA attention in float32, as the plain version
+    computes it, but blind to keys lo..lo+ATTN_DROPPED_TILE-1, as a kernel
+    that skipped that K/V tile would be; by blocks of ``rows`` queries, so
+    the scores of a 32k sequence fit.  Output in q's dtype."""
     import torch
 
     b, s, hq, d = q.shape
@@ -518,10 +555,14 @@ def attention_dropping_tile(q, k, v, lo: int, rows: int = 2048):
     out = torch.empty_like(q)
     for r0 in range(0, s, rows):
         qb = q[:, r0:r0 + rows].float()
-        qpos = r0 + torch.arange(qb.shape[1], device=q.device)
-        mask = (kpos[None, :] <= qpos[:, None]) & seen[None, :]
+        qpos = q_offset + r0 + torch.arange(qb.shape[1], device=q.device)
+        mask = seen[None, :].expand(qb.shape[1], -1)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
         sc = torch.einsum("bqhd,bkhd->bhqk", qb, kf) * d ** -0.5
-        p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        p = torch.softmax(sc.masked_fill(~mask, -1e30), dim=-1) * mask
         out[:, r0:r0 + rows] = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(
             q.dtype)
         del sc, p
@@ -546,7 +587,7 @@ def check_attn_bf16(got, ref, control, what: str) -> str:
 def check_flash(records: dict) -> None:
     import torch
 
-    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.attention import ops
     from repro_torch.kernels.attention.ref import flash_attention_ref
 
     dev = torch.device("cuda")
@@ -560,31 +601,50 @@ def check_flash(records: dict) -> None:
                 torch.randn((b, skv, hkv, d), generator=gen, device=dev
                             ).to(dtype))
 
-    for dtype, tol in ((torch.float32, "atol 2e-5 + rtol 1e-4"),
-                       (torch.bfloat16, "atol 3e-2")):
-        worst = 0.0
+    # the reference's six cases: the SIMT kernel in float32 and bf16 at
+    # their own head sizes, the tensor-core kernel in bf16 at D=64 and
+    # D=128; float32 at the reference's tolerance, bf16 at its 3e-2 and at
+    # ATTN_BF16_ATOL past one bf16 ulp; each case with its control
+    for kernel, dtype, d in (("simt", torch.float32, None),
+                             ("simt", torch.bfloat16, None),
+                             ("wgmma", torch.bfloat16, 64),
+                             ("wgmma", torch.bfloat16, 128)):
+        worst = worst_ex = 0.0
         for c in FLASH_CASES:
             q, k, v = qkv(c["b"], c["sq"], c["skv"], c["hq"], c["hkv"],
-                          c["d"], dtype)
+                          d or c["d"], dtype)
             kw = dict(causal=c["causal"], window=c["window"],
                       q_offset=c["skv"] - c["sq"] if c["causal"] else 0)
-            got = flash_attention(q, k, v, **kw).float()
-            ref = flash_attention_ref(q, k, v, **kw).float()
-            worst = max(worst, float((got - ref).abs().max()))
-            ok = (torch.allclose(got, ref, atol=2e-5, rtol=1e-4)
-                  if dtype == torch.float32
-                  else float((got - ref).abs().max()) <= 3e-2)
-            check(ok, f"flash_attention {dtype} case {c}: max |err| "
-                      f"{float((got - ref).abs().max())}")
-        print(f"kernel flash_attention {str(dtype)[6:]}: the reference's six "
-              f"cases, max|err| {worst:.3g} ({tol})")
+            got = ops.launch(kernel, q, k, v, **kw)
+            ref = flash_attention_ref(q, k, v, **kw)
+            ctl = attention_dropping_tile(q, k, v, c["skv"] // 2, **kw)
+            err = float((got.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            what = f"{ops.KERNELS[kernel].name} {dtype} case {c} at D={d}"
+            if dtype == torch.float32:
+                check(bool(torch.allclose(got, ref, atol=2e-5, rtol=1e-4)),
+                      f"{what}: max |err| {err}")
+                check(not torch.allclose(ctl, ref, atol=2e-5, rtol=1e-4),
+                      f"{what}: the control passes")
+            else:
+                check(err <= 3e-2, f"{what}: max |err| {err}")
+                check_attn_bf16(got, ref, ctl, what)
+                worst_ex = max(worst_ex, attn_excess(got, ref))
+        tol = ("atol 2e-5 + rtol 1e-4" if dtype == torch.float32 else
+               f"atol 3e-2; |err| - 2^-7 |ref| at most {worst_ex:.3g}, limit "
+               f"{ATTN_BF16_ATOL}")
+        print(f"kernel {ops.KERNELS[kernel].name} {str(dtype)[6:]}: the "
+              f"reference's six cases at "
+              f"{'their head sizes' if d is None else f'D={d}'}, max|err| "
+              f"{worst:.3g} ({tol}); each case's control fails")
 
     # the main path's shape: smollm-135m's 4 x 2048 prefill, one layer, in
-    # float32 at the reference's tolerance, then in bf16 against one bf16
-    # ulp of the plain version, with the control beside it
+    # float32 at the reference's tolerance (the SIMT kernel), then in bf16
+    # through both kernels against one bf16 ulp of the plain version, with
+    # the control beside it
     b, s, hq, hkv, d = 4, 2048, 9, 3, 64
     q, k, v = qkv(b, s, s, hq, hkv, d, torch.float32)
-    got = flash_attention(q, k, v, causal=True)
+    got = ops.flash_attention(q, k, v, causal=True)
     ref = flash_attention_ref(q, k, v, causal=True)
     err32 = float((got - ref).abs().max())
     check(bool(torch.allclose(got, ref, atol=2e-5, rtol=1e-4)),
@@ -598,46 +658,77 @@ def check_flash(records: dict) -> None:
           f"the control with {ATTN_DROPPED_TILE} keys dropped {ctl_err:.3g}, "
           f"fails)")
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
-    got = flash_attention(q, k, v, causal=True)
     ref = flash_attention_ref(q, k, v, causal=True)
-    err = float((got.float() - ref.float()).abs().max())
-    check(err <= 3e-2, f"flash_attention smollm shape: max |err| {err}")
-    readings = check_attn_bf16(got, ref,
-                               attention_dropping_tile(q, k, v, s // 2),
-                               "flash_attention smollm shape bf16")
+    ctl = attention_dropping_tile(q, k, v, s // 2)
     lib = sdpa_call(q, k, v)
-    lib_err = float((got.float() - lib().transpose(1, 2).float()).abs().max())
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    lib_out = lib().transpose(1, 2).float()
+    shape = f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal"
+    for kernel in ("wgmma", "simt"):
+        name = ops.KERNELS[kernel].name
+        got = ops.launch(kernel, q, k, v, causal=True)
+        err = float((got.float() - ref.float()).abs().max())
+        check(err <= 3e-2, f"{name} smollm shape: max |err| {err}")
+        readings = check_attn_bf16(got, ref, ctl, f"{name} smollm shape bf16")
+        lib_err = float((got.float() - lib_out).abs().max())
+        print(f"kernel {name} {shape}: max|err| {err:.3g} (tol 3e-2), "
+              f"{readings}; against SDPA {lib_err:.3g}")
+        records[name] = dict(max_abs_err=err, shape=shape)
+    # times in turn in one call: tensor-core, SIMT, SDPA, plain, and the
+    # tensor-core kernel again (its spread)
+    times = {}
+    for kernel in ("wgmma", "simt"):
+        times[kernel] = time_ms(lambda: ops.launch(kernel, q, k, v,
+                                                   causal=True))
+    lib_ms = time_ms(lib)
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
                        reps=5)
-    lib_ms = time_ms(lib)
+    again = time_ms(lambda: ops.launch("wgmma", q, k, v, causal=True))
     b_ms, b_by = flash_bound(b, s, hq, hkv, d)
-    print(f"kernel flash_attention B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
-          f"causal: max|err| {err:.3g} (tol 3e-2), {readings}; against "
-          f"SDPA {lib_err:.3g}; ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-          f"library_ms {lib_ms:.4f} (F.scaled_dot_product_attention), "
-          f"bound_ms {b_ms:.5f} ({b_by}), {ms / lib_ms:.1f}x the library")
-    records["flash_attention"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms,
-        shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal")
+    for kernel, ms in times.items():
+        records[ops.KERNELS[kernel].name].update(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms)
+    print_flash_times(shape, times, lib_ms, b_ms, b_by, plain_ms, again)
 
-    # and the 32k prefill's shape (one layer, B=1); the plain version would
-    # materialise ~39 GB of scores, so it is held to the chunked one in the
-    # LM phase
+    # the 32k prefill's shape (one layer, B=1).  The plain version would
+    # materialise ~39 GB of scores, so here the tensor-core kernel is held
+    # to the SIMT kernel (both sum in float32 and round once) with the
+    # control beside it, and in the LM phase to the chunked plain version
     s = 32768
     q, k, v = qkv(1, s, s, hq, hkv, d, torch.bfloat16)
     lib = sdpa_call(q, k, v)
-    lib_err = float((flash_attention(q, k, v, causal=True).float()
-                     - lib().transpose(1, 2).float()).abs().max())
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), reps=3,
-                 warmup=1)
+    got = ops.launch("wgmma", q, k, v, causal=True)
+    simt = ops.launch("simt", q, k, v, causal=True)
+    lib_err = float((got.float() - lib().transpose(1, 2).float()).abs().max())
+    readings = check_attn_bf16(got, simt,
+                               attention_dropping_tile(q, k, v, s // 2),
+                               f"flash_attention_wgmma S={s} against SIMT")
+    del simt
+    print(f"kernel flash_attention_wgmma B=1 S={s} Hq={hq} Hkv={hkv} D={d} "
+          f"bf16 causal, against the SIMT kernel: {readings}; against SDPA "
+          f"max|err| {lib_err:.3g}")
+    times = {kernel: time_ms(lambda: ops.launch(kernel, q, k, v,
+                                                causal=True),
+                             reps=3, warmup=1)
+             for kernel in ("wgmma", "simt")}
     lib_ms = time_ms(lib, reps=3, warmup=1)
+    again = time_ms(lambda: ops.launch("wgmma", q, k, v, causal=True),
+                    reps=3, warmup=1)
     b_ms, b_by = flash_bound(1, s, hq, hkv, d)
-    print(f"kernel flash_attention B=1 S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
-          f"causal: against SDPA max|err| {lib_err:.3g}, ms {ms:.3f}, "
-          f"library_ms {lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}), "
-          f"{ms / lib_ms:.1f}x the library")
+    print_flash_times(f"B=1 S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+                      times, lib_ms, b_ms, b_by, None, again)
+
+
+def print_flash_times(shape: str, times: dict, lib_ms: float, b_ms: float,
+                      b_by: str, plain_ms: float | None, again: float
+                      ) -> None:
+    ms, simt_ms = times["wgmma"], times["simt"]
+    plain = "" if plain_ms is None else f", plain {plain_ms:.4f}"
+    print(f"flash times {shape}: tensor-core kernel {ms:.4f} ms (again "
+          f"{again:.4f}), SIMT kernel {simt_ms:.4f}, SDPA {lib_ms:.4f}"
+          f"{plain}, bound {b_ms:.5f} ({b_by}); SIMT / tensor-core "
+          f"{simt_ms / ms:.2f}x, tensor-core / SDPA {ms / lib_ms:.2f}x, "
+          f"tensor-core / bound {ms / b_ms:.1f}x")
 
 
 # --------------------------------------------------------------------------
@@ -948,9 +1039,13 @@ def run_lm_path(profile: bool = False) -> dict:
           f"{long_ms:.1f}")
     print(f"LM launches: {launches} over 2 prefill calls of {cfg.n_layers} "
           f"layers ({cfg.n_layers} a call)")
-    check(launches.get("flash_attention", 0) == 2 * cfg.n_layers,
-          f"flash_attention launched {launches.get('flash_attention', 0)} "
-          f"times on the LM path, not {2 * cfg.n_layers}")
+    check(launches.get("flash_attention_wgmma", 0) == 2 * cfg.n_layers,
+          f"flash_attention_wgmma launched "
+          f"{launches.get('flash_attention_wgmma', 0)} times on the LM path, "
+          f"not {2 * cfg.n_layers}")
+    check(launches.get("flash_attention", 0) == 0,
+          f"the SIMT flash_attention launched "
+          f"{launches.get('flash_attention', 0)} times on the bf16 LM path")
 
     # comparisons, after the counts are read: the same step under the
     # chunked plain version, and layer 0's attention at 32k
@@ -1003,7 +1098,51 @@ def run_lm_path(profile: bool = False) -> dict:
           f"plain version: max|err| {err0:.3g}, {readings}")
     if profile:
         profile_lm(prefill, decode, params, tokens)
+    del params, long_out, out, ref
+    launches.update(run_lm_float32(cfg, tokens[:1]))
     return {k: launches.get(k, 0) for k in LM_KERNELS}
+
+
+def run_lm_float32(cfg, tokens) -> dict:
+    """The same model under the float32 policy (the reference's float32
+    path, whose attention the SIMT kernel serves): one prefill, counted on
+    its own, held to the chunked plain version's logits."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    from repro_torch.training.steps import lm_prefill_step
+
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(12),
+                           cfg32, device="cuda")
+    b, s = tokens.shape
+    prefill = lm_prefill_step(cfg32, s)
+    prefill(params, {"tokens": tokens[:, :256]})  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})["logits"]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = _build.launch_counts()
+    chunked = dataclasses.replace(cfg32, attention_impl="chunked")
+    ref = lm_prefill_step(chunked, s)(params, {"tokens": tokens})["logits"]
+    check(bool(torch.isfinite(logits).all()),
+          "the float32 LM prefill gave non-finite logits")
+    err = float((logits - ref).abs().max())
+    print(f"LM float32 policy prefill B={b} S={s}: {ms:.1f} ms; logits "
+          f"against attention_impl=chunked max|err| {err:.3g} (tol "
+          f"{LM_F32_LOGIT_ATOL}); launches {launches}")
+    check(err <= LM_F32_LOGIT_ATOL,
+          f"float32 LM logits against chunked: {err}")
+    check(launches == {"flash_attention": cfg.n_layers},
+          f"the float32 LM prefill launched {launches}, not "
+          f"{cfg.n_layers} of the SIMT flash_attention")
+    return launches
 
 
 def profile_lm(prefill, decode, params, tokens, n_dec: int = 4) -> None:
@@ -1081,13 +1220,20 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32})")
     t0 = time.perf_counter()
     print(f"build: {_build.build_all():.1f}s for {_build.kernel_names()}")
+    print_ptxas(_build.ptxas_report("attention"), "flash_wgmma_kernel")
 
     records: dict = {}
-    check_gnomonic(records)
-    check_project_srois(records)
-    check_nms(records)
-    check_sphiou_bf16(records)
+    flash_only = "--flash-only" in sys.argv[1:]
+    if not flash_only:
+        check_gnomonic(records)
+        check_project_srois(records)
+        check_nms(records)
+        check_sphiou_bf16(records)
     check_flash(records)
+    if flash_only:
+        print(f"total {time.perf_counter() - t0:.1f}s (--flash-only: no "
+              f"result)")
+        return 0
     check_small_input()
     profile = "--profile" in sys.argv[1:]
     launches = run_main_path(profile=profile)

@@ -1,13 +1,16 @@
 """Build and load the port's CUDA kernels (nvcc into a plain-C shared
 library per kernel, loaded with ``ctypes``).
 
-Each ``repro_torch/kernels/<name>/csrc/<name>.cu`` compiles on first use
-with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
--Xcompiler -fPIC`` into ``build/repro_torch_kernels/`` at the root of
-the checkout.  The library's file name carries a hash of the sources
-and flags, so editing a source rebuilds it and a stale library is never
-loaded.  :func:`build_all` compiles every kernel at once (one ``nvcc``
-per source, all started together).
+Each source ``repro_torch/kernels/<name>/csrc/*.cu`` compiles on first
+use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler
+-fPIC -Xptxas -v -c``, one ``nvcc`` per source, all started together;
+the objects of one kernel directory link into ``lib<name>-<hash>.so``
+under ``build/repro_torch_kernels/`` at the root of the checkout.  The
+file name carries a hash of the sources and flags, so editing a source
+rebuilds the library and a stale one is never loaded.  The compiler's
+``-Xptxas -v`` report (registers, spills and shared memory of each
+kernel function) is kept beside the library (:func:`ptxas_report`).
+:func:`build_all` compiles every kernel at once.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` (``ctypes.c_void_p``) and returns ``cudaGetLastError()`` after
@@ -32,7 +35,7 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -42,8 +45,8 @@ _LAUNCHES: dict[str, int] = {}
 
 def kernel_names() -> list[str]:
     """Every kernel directory that holds CUDA sources."""
-    return sorted(p.parent.parent.name
-                  for p in KERNELS_DIR.glob("*/csrc/*.cu"))
+    return sorted({p.parent.parent.name
+                   for p in KERNELS_DIR.glob("*/csrc/*.cu")})
 
 
 def _sources(name: str) -> list[Path]:
@@ -74,26 +77,46 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _start_build(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+def _start_build(name: str
+                 ) -> tuple[Path, list[tuple[Path, subprocess.Popen]]] | None:
+    """Start one ``nvcc -c`` per source of kernel ``name``; None if its
+    library is built already."""
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources(name))]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return out, tmp, proc
+    jobs = []
+    for src in _sources(name):
+        obj = out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    return out, jobs
 
 
 def _finish_build(name: str, job) -> None:
-    out, tmp, proc = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
+    """Wait for the compiles of kernel ``name``, link its library and keep
+    the compiler's report beside it."""
+    out, jobs = job
+    logs = [proc.communicate()[0] for _, proc in jobs]
+    objs = [str(obj) for obj, _ in jobs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        if any(proc.returncode != 0 for _, proc in jobs):
+            raise RuntimeError(f"nvcc failed for kernel {name!r}:\n"
+                               + "\n".join(logs))
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking kernel {name!r} failed:\n"
+                               f"{link.stdout}{link.stderr}")
+        out.with_suffix(".ptxas.txt").write_text("\n".join(logs))
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for kernel {name!r}:\n{log}")
-    os.replace(tmp, out)
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
 
 
 def build_all() -> float:
@@ -112,6 +135,15 @@ def build_all() -> float:
         if errors:
             raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> list[str]:
+    """The compiler's ``-Xptxas -v`` report of kernel ``name``'s build
+    (each kernel function's registers, spills and shared memory, and any
+    warning), line by line; built first if needed."""
+    load(name)
+    text = _lib_path(name).with_suffix(".ptxas.txt").read_text()
+    return [ln.strip() for ln in text.splitlines() if ln.strip()]
 
 
 def load(name: str) -> ctypes.CDLL:

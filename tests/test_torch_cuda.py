@@ -194,6 +194,10 @@ FLASH_CASES = [
     dict(b=1, sq=1000, skv=1000, hq=9, hkv=3, d=64, causal=True, window=None),
     dict(b=1, sq=200, skv=200, hq=2, hkv=1, d=128, causal=True, window=None),
 ]
+# and the reference's six at the head sizes the tensor-core kernel serves
+# in bf16 (64 and 128)
+FLASH_CASES += [dict(c, d=d) for d in (64, 128) for c in FLASH_CASES[:6]
+                if c["d"] != d]
 
 
 @pytest.mark.cuda
@@ -209,7 +213,11 @@ def test_cuda_flash_attention(cuda, case, dtype):
         mk(case["skv"], case["hkv"])
     qoff = case["skv"] - case["sq"] if case["causal"] else 0
     kw = dict(causal=case["causal"], window=case["window"], q_offset=qoff)
+    _build.reset_launch_counts()
     got = tattn.flash_attention(q, k, v, **kw)
+    # bf16 at D 64 and 128 on the tensor-core kernel, the rest on the SIMT
+    kernel = tattn.KERNELS[tattn.route(dtype, case["d"])].name
+    assert _build.launch_counts() == {kernel: 1}
     assert got.dtype == dtype and got.shape == q.shape
     ref = flash_attention_ref(q, k, v, **kw)
     if dtype == torch.float32:
@@ -222,6 +230,25 @@ def test_cuda_flash_attention(cuda, case, dtype):
         excess = (got.float() - ref.float()).abs() \
             - 2.0 ** -7 * ref.float().abs()
         assert float(excess.max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wgmma_reads_packed_views(cuda):
+    """bf16 q, k and v at D=64 as views into a packed qkv tensor, which
+    TMA maps as they lie: the tensor-core kernel reads them without a
+    copy, in one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    qkv = torch.randn((2, 300, 9 + 3 + 3, 64), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, 40:, :9], qkv[:, :, 9:12], qkv[:, :, 12:]
+    assert not q.is_contiguous()
+    assert all(tattn.tma_operand(x) is x for x in (q, k, v))
+    _build.reset_launch_counts()
+    got = tattn.flash_attention(q, k, v, causal=True, q_offset=40)
+    assert _build.launch_counts() == {"flash_attention_wgmma": 1}
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=40).float()
+    excess = (got.float() - ref).abs() - 2.0 ** -7 * ref.abs()
+    assert float(excess.max()) <= 2e-5
 
 
 @pytest.mark.cuda
@@ -252,9 +279,13 @@ def test_cuda_launches_are_counted(cuda):
     q = torch.zeros((1, 3, 2, 16), device=cuda)
     tattn.flash_attention(q, q, q)
     tattn.flash_attention(q.cpu(), q.cpu(), q.cpu())  # the plain version
+    qb = torch.zeros((1, 3, 2, 64), device=cuda, dtype=torch.bfloat16)
+    tattn.flash_attention(qb, qb, qb)
+    tattn.flash_attention(qb.cpu(), qb.cpu(), qb.cpu())
     assert _build.launch_counts() == {"sphiou_matrix_batch": 1,
                                       "sphiou_matrix_batch_bf16": 1,
-                                      "flash_attention": 1}
+                                      "flash_attention": 1,
+                                      "flash_attention_wgmma": 1}
 
 
 @pytest.mark.cuda
