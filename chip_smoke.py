@@ -7,17 +7,27 @@ Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from the sources in the checkout (one ``nvcc``
-   per source, all started together), and print the tensor-core flash
-   kernel's ``-Xptxas -v`` report (registers, spills, shared memory);
+   per source, all started together), and print the ``-Xptxas -v``
+   report (registers, spills, shared memory) of the tensor-core flash
+   kernel, the greedy suppression's two kernels and the batched
+   projection;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes: max |err| against the stated tolerance, the
    kernel's, the plain version's and (where one PyTorch call computes
    the same function) that call's time in ms, and the least time the
-   card could take (``bound_ms``).  Flash attention's two kernels are
+   card could take (``bound_ms``).  The batched projection and the greedy
+   suppression are also checked and timed at a batched tick's own shapes
+   (9 crops at 896 and at 416; 4 rows of 128 on the float32 IoU and on
+   the bf16 option's), the gnomonic outputs are printed as digests (two
+   builds that print the same digest agree bit for bit), and the greedy
+   kernel is held to its plain version on rows with NaN, +inf and signed
+   zero scores.  Flash attention's two kernels are
    checked on the reference's six test cases (the SIMT kernel in float32
    and bf16 at their head sizes, the tensor-core kernel in bf16 at D=64
    and D=128), at smollm-135m's 4x2048 shape (float32 on the SIMT
-   kernel, bf16 on both) and at 32k (the tensor-core kernel against the
+   kernel, bf16 on both), at the float32 policy's 1x2048 (the SIMT
+   kernel's path shape, timed beside SDPA in float32) and at 32k (the
+   tensor-core kernel against the
    SIMT one), each with a control that drops one K/V tile and must fail;
    then the tensor-core kernel, the SIMT kernel, SDPA and the plain
    version are timed in turn.  The bf16 SphIoU option is also checked
@@ -60,8 +70,13 @@ Phases, in order; any failure exits non-zero:
 for attention alone), for comparing versions of the kernels; it prints no
 result line.
 
+``--frame-kernels-only`` stops after the frame loop's kernels (phase 3 for
+the gnomonic sampler, the batched projection, SphIoU and the greedy
+suppression), for the same use; it prints no result line either.
+
 ``--profile`` also profiles the last batched tick, one LM prefill step
-and four decode steps: the card's busy share of each and its top kernels.
+and four decode steps: the card's busy share of each, its top kernels and
+the frame loop's kernels among them.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -144,6 +159,9 @@ KERNELS = {
         "src/repro_torch/kernels/attention/csrc/attention_wgmma.cu",
         "src/repro/kernels/attention/attention.py:130 (bf16, D 64 and 128)"),
 }
+# the CUDA functions of the frame loop's kernels, as a profile names them
+PORT_KERNEL_FUNCTIONS = ("gnomonic_sample_kernel", "project_srois_kernel",
+                         "sphiou_batch_kernel", "greedy_")
 # the kernels the LM serving path runs (bf16 on the tensor-core kernel,
 # the float32 policy on the SIMT one); the frame loop runs the others
 LM_KERNELS = ("flash_attention", "flash_attention_wgmma")
@@ -229,6 +247,8 @@ def texel_ids(u, v, h: int, w: int):
 
 
 def check_gnomonic(records: dict) -> None:
+    import hashlib
+
     import torch
     import torch.nn.functional as F
 
@@ -264,10 +284,12 @@ def check_gnomonic(records: dict) -> None:
         n_texels = int(torch.unique(texel_ids(u, v, h, w)).numel())
         n_bytes = n_texels * c * 4 + 2 * s * s * 4 + s * s * c * 4
         b_ms, b_by = bound_ms(n_bytes, s * s * (9 * c + 10))
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"kernel gnomonic_sample {label}: {s}x{s} PI from {h}x{w}x{c} "
               f"f32, max|err| {err:.3g} (tol 3e-6 + 1e-5 rel), "
               f"ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
-              f"{lib_ms:.4f} (F.grid_sample), bound_ms {b_ms:.5f} ({b_by})")
+              f"{lib_ms:.4f} (F.grid_sample), bound_ms {b_ms:.5f} ({b_by}); "
+              f"output sha256 {digest}")
         if label == "1280":
             records["gnomonic_sample"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -283,6 +305,8 @@ def check_gnomonic(records: dict) -> None:
 
 
 def check_project_srois(records: dict) -> None:
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -296,7 +320,9 @@ def check_project_srois(records: dict) -> None:
     h, w, c = 1920, 3840, 3
     frames = torch.rand((4, h, w, c), generator=gen, device=dev)
     rng = np.random.default_rng(2)
-    for b, s in ((8, 640), (8, 1280), (4, 416)):
+    # the recorded shape, two more, and tick 3's largest chunk (9 crops at
+    # 896) and its 416 chunk (9 crops)
+    for b, s in ((8, 640), (8, 1280), (4, 416), (9, 896), (9, 416)):
         idx = [i % 4 for i in range(b)]
         # float32 geometry, as both versions read it; |phi| up to 1.4 with
         # FoVs up to 110 degrees puts poles inside some crops
@@ -321,9 +347,12 @@ def check_project_srois(records: dict) -> None:
                                      float(centers[i, 1]), fovs[i].tolist(), s)
             err_k = max(err_k, float((got[i].double() - exact).abs().max()))
             err_p = max(err_p, float((ref[i].double() - exact).abs().max()))
+        # the output's digest: two builds that agree on it agree bit for bit
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"kernel project_srois_batched B={b} S={s}: max|kernel - "
               f"plain| {err:.3g}; against the float64 map: kernel "
-              f"{err_k:.3g}, plain {err_p:.3g} (tol 2 x plain + 5e-5)")
+              f"{err_k:.3g}, plain {err_p:.3g} (tol 2 x plain + 5e-5); "
+              f"output sha256 {digest}")
         check(err_k <= 2 * err_p + 5e-5,
               f"project_srois_batched {b}x{s}: {err_k} from the float64 map, "
               f"the plain version {err_p}")
@@ -371,6 +400,7 @@ def nms_inputs(b: int, n: int, seed: int):
 
 
 def check_nms(records: dict) -> None:
+    import numpy as np
     import torch
 
     from repro_torch.kernels.nms import ops as nms_ops
@@ -379,35 +409,44 @@ def check_nms(records: dict) -> None:
     from repro_torch.kernels.sphiou.ref import sphiou_ref_batch
 
     dev = torch.device("cuda")
-    for b, n in ((8, 128), (32, 512)):
+    # the recorded shapes, then a tick's rows (four streams padded to 128)
+    # on the float32 IoU and on the bf16 option's
+    for b, n, iou_dtype in ((8, 128, torch.float32), (32, 512, torch.float32),
+                            (4, 128, torch.float32), (4, 128, torch.bfloat16)):
         boxes, scores, mask = nms_inputs(b, n, b + n)
         bx = torch.tensor(boxes, dtype=torch.float32, device=dev)
         sc = torch.tensor(scores, dtype=torch.float32, device=dev)
         mk = torch.tensor(mask, device=dev)
-        iou = iou_ops.sphiou_matrix_batch(bx, bx)
-        ref = sphiou_ref_batch(bx, bx)
-        err = float((iou - ref).abs().max())
-        check(err <= 5e-6, f"sphiou_matrix_batch {b}x{n}: max |err| {err}")
-        ms = time_ms(lambda: iou_ops.sphiou_matrix_batch(bx, bx))
-        plain_ms = time_ms(lambda: sphiou_ref_batch(bx, bx), reps=5)
-        # per pair, counted from the source: two directions of sincos x3,
-        # atan2, asin, sin x2 and ~25 arithmetic, plus areas and the ratio
-        b_ms, b_by = bound_ms(2 * b * n * 16 + b * n * n * 4, b * n * n * 80)
-        print(f"kernel sphiou_matrix_batch B={b} N={n}: max|err| {err:.3g} "
-              f"(tol 5e-6), ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-              f"library_ms null, bound_ms {b_ms:.5f} ({b_by})")
+        iou = iou_ops.sphiou_matrix_batch(bx, bx, dtype=iou_dtype)
+        what = f"B={b} N={n}" + (" (bf16 IoU)" if iou_dtype != torch.float32
+                                 else "")
+        if iou_dtype == torch.float32:  # the bf16 entry: check_sphiou_bf16
+            ref = sphiou_ref_batch(bx, bx)
+            err = float((iou - ref).abs().max())
+            check(err <= 5e-6, f"sphiou_matrix_batch {b}x{n}: max |err| {err}")
+            ms = time_ms(lambda: iou_ops.sphiou_matrix_batch(bx, bx))
+            plain_ms = time_ms(lambda: sphiou_ref_batch(bx, bx), reps=5)
+            # per pair, counted from the source: two directions of sincos
+            # x3, atan2, asin, sin x2 and ~25 arithmetic, plus areas and
+            # the ratio
+            b_ms, b_by = bound_ms(2 * b * n * 16 + b * n * n * 4,
+                                  b * n * n * 80)
+            print(f"kernel sphiou_matrix_batch {what}: max|err| {err:.3g} "
+                  f"(tol 5e-6), ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+                  f"library_ms null, bound_ms {b_ms:.5f} ({b_by})")
         keep = nms_ops.greedy_suppress_rows(iou, sc, mk, 0.6)
         keep_ref = greedy_suppress_rows_ref(iou, sc, mk, 0.6)
         check(bool(torch.equal(keep, keep_ref)),
-              f"greedy_suppress_rows {b}x{n}: keep masks differ")
-        g_ms = time_ms(lambda: nms_ops.greedy_suppress_rows(iou, sc, mk, 0.6))
+              f"greedy_suppress_rows {what}: keep masks differ")
+        g_ms = time_ms(lambda: nms_ops.greedy_suppress_rows(iou, sc, mk, 0.6),
+                       reps=100)
         g_plain = time_ms(
             lambda: greedy_suppress_rows_ref(iou, sc, mk, 0.6), reps=5)
         kept = int(keep.sum())
         # this run's data: the kept boxes' IoU rows, plus scores/mask/keep
         gb_ms, gb_by = bound_ms(kept * n * 4 + b * n * 6, kept * n * 3)
-        print(f"kernel greedy_suppress_rows B={b} N={n}: keep masks equal "
-              f"({kept} kept of {int(mask.sum())}), ms {g_ms:.4f}, plain_ms "
+        print(f"kernel greedy_suppress_rows {what}: keep masks equal ({kept} "
+              f"kept of {int(mask.sum())}), ms {g_ms:.4f}, plain_ms "
               f"{g_plain:.4f}, library_ms null, bound_ms {gb_ms:.6f} "
               f"({gb_by})")
         if (b, n) == (32, 512):
@@ -417,6 +456,31 @@ def check_nms(records: dict) -> None:
             records["greedy_suppress_rows"] = dict(
                 max_abs_err=0.0, ms=g_ms, plain_ms=g_plain, bound_ms=gb_ms,
                 bound_by=gb_by, library_ms=None, shape=f"B={b} N={n}")
+
+    # a tick's rows with NaN scores (argmax ranks NaN above every number,
+    # so the reference keeps a NaN-scored box first), +inf, and -0.0
+    # beside 0.0 (equal: the lower index first)
+    b, n = 4, 128
+    boxes, scores, mask = nms_inputs(b, n, 5)
+    scores[:, ::9] = np.nan
+    scores[:, 4::11] = np.inf
+    scores[:, 2::13] = 0.0
+    scores[:, 3::13] = -0.0
+    bx = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    sc = torch.tensor(scores, dtype=torch.float32, device=dev)
+    mk = torch.tensor(mask, device=dev)
+    iou = iou_ops.sphiou_matrix_batch(bx, bx)
+    keep = nms_ops.greedy_suppress_rows(iou, sc, mk, 0.6)
+    keep_ref = greedy_suppress_rows_ref(iou, sc, mk, 0.6)
+    nan = torch.isnan(sc) & mk
+    print(f"kernel greedy_suppress_rows B={b} N={n} with NaN, +inf and "
+          f"signed-zero scores: kernel keeps {int(keep.sum())} "
+          f"({int((keep & nan).sum())} of {int(nan.sum())} NaN-scored), "
+          f"plain version {int(keep_ref.sum())} "
+          f"({int((keep_ref & nan).sum())})")
+    check(bool(torch.equal(keep, keep_ref)),
+          f"greedy_suppress_rows B={b} N={n} with NaN scores: keep masks "
+          f"differ")
 
 
 def bench_box_sets():
@@ -520,14 +584,17 @@ def sdpa_call(q, k, v):
                                                   enable_gqa=True)
 
 
-def flash_bound(b: int, s: int, hq: int, hkv: int, d: int
-                ) -> tuple[float, str]:
+def flash_bound(b: int, s: int, hq: int, hkv: int, d: int,
+                float32: bool = False) -> tuple[float, str]:
     """Causal attention's least time: 4*D operations a (query, key) pair
     at the bf16 tensor-core rate, against q, k, v and the output moved
-    once in bf16."""
+    once in bf16; for float32, 4-byte elements and the float32 rate
+    outside the tensor cores (TF32 would round the inputs)."""
     pairs = b * hq * s * (s + 1) // 2
-    n_bytes = 2 * d * b * s * (2 * hq + 2 * hkv)
-    return bound_ms(n_bytes, 4 * d * pairs, PEAK_BF16_TC_FLOPS)
+    elem = 4 if float32 else 2
+    n_bytes = elem * d * b * s * (2 * hq + 2 * hkv)
+    return bound_ms(n_bytes, 4 * d * pairs,
+                    PEAK_F32_FLOPS if float32 else PEAK_BF16_TC_FLOPS)
 
 
 def attn_excess(got, ref) -> float:
@@ -657,6 +724,33 @@ def check_flash(records: dict) -> None:
           f"float32 causal: max|err| {err32:.3g} (atol 2e-5 + rtol 1e-4; "
           f"the control with {ATTN_DROPPED_TILE} keys dropped {ctl_err:.3g}, "
           f"fails)")
+    # the float32 policy's LM prefill (phase 6, 1 x 2048), the shape the
+    # SIMT kernel serves on a path: checked, then the kernel, SDPA in
+    # float32 (TF32 off, as the port's policy sets it) and the plain
+    # version timed in turn
+    q1, k1, v1 = (x[:1].contiguous() for x in (q, k, v))
+    got = ops.flash_attention(q1, k1, v1, causal=True)
+    ref = flash_attention_ref(q1, k1, v1, causal=True)
+    err1 = float((got - ref).abs().max())
+    check(bool(torch.allclose(got, ref, atol=2e-5, rtol=1e-4)),
+          f"flash_attention 1x{s} float32: max |err| {err1}")
+    ms = time_ms(lambda: ops.flash_attention(q1, k1, v1, causal=True))
+    lib = sdpa_call(q1, k1, v1)
+    lib_ms = time_ms(lib)
+    plain_ms = time_ms(lambda: flash_attention_ref(q1, k1, v1, causal=True),
+                       reps=5)
+    b_ms, b_by = flash_bound(1, s, hq, hkv, d, float32=True)
+    shape = f"B=1 S={s} Hq={hq} Hkv={hkv} D={d} float32 causal"
+    lib_err = float((got - lib().transpose(1, 2)).abs().max())
+    print(f"kernel flash_attention {shape}: max|err| {err1:.3g} (atol 2e-5 + "
+          f"rtol 1e-4; against SDPA {lib_err:.3g}), ms {ms:.4f}, plain_ms "
+          f"{plain_ms:.4f}, library_ms {lib_ms:.4f} (SDPA float32, TF32 off), "
+          f"bound_ms {b_ms:.5f} ({b_by})")
+    records["flash_attention"] = dict(
+        max_abs_err=err1, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, shape=shape)
+    del q1, k1, v1
+
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     ref = flash_attention_ref(q, k, v, causal=True)
     ctl = attention_dropping_tile(q, k, v, s // 2)
@@ -672,7 +766,8 @@ def check_flash(records: dict) -> None:
         lib_err = float((got.float() - lib_out).abs().max())
         print(f"kernel {name} {shape}: max|err| {err:.3g} (tol 3e-2), "
               f"{readings}; against SDPA {lib_err:.3g}")
-        records[name] = dict(max_abs_err=err, shape=shape)
+        if kernel == "wgmma":  # the SIMT kernel's record: float32, above
+            records[name] = dict(max_abs_err=err, shape=shape)
     # times in turn in one call: tensor-core, SIMT, SDPA, plain, and the
     # tensor-core kernel again (its spread)
     times = {}
@@ -684,10 +779,9 @@ def check_flash(records: dict) -> None:
                        reps=5)
     again = time_ms(lambda: ops.launch("wgmma", q, k, v, causal=True))
     b_ms, b_by = flash_bound(b, s, hq, hkv, d)
-    for kernel, ms in times.items():
-        records[ops.KERNELS[kernel].name].update(
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms)
+    records["flash_attention_wgmma"].update(
+        ms=times["wgmma"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms)
     print_flash_times(shape, times, lib_ms, b_ms, b_by, plain_ms, again)
 
     # the 32k prefill's shape (one layer, B=1).  The plain version would
@@ -1187,6 +1281,9 @@ def print_profile(prof, wall_ms: float, what: str = "tick 3",
           f"wall ({100 * busy / wall_ms:.1f}%), {n_kernels} device ops")
     for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+    port = [r for r in rows if any(k in r[2] for k in PORT_KERNEL_FUNCTIONS)]
+    for ms, n, name in sorted(port, reverse=True):
+        print(f"  port kernel {ms:9.4f} ms  {n:5d}x  {name[:90]}")
 
 
 def _leaves(tree):
@@ -1221,17 +1318,22 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"build: {_build.build_all():.1f}s for {_build.kernel_names()}")
     print_ptxas(_build.ptxas_report("attention"), "flash_wgmma_kernel")
+    print_ptxas(_build.ptxas_report("nms"), "greedy_")
+    print_ptxas(_build.ptxas_report("gnomonic"), "project_srois_kernel")
 
     records: dict = {}
     flash_only = "--flash-only" in sys.argv[1:]
+    frame_only = "--frame-kernels-only" in sys.argv[1:]
     if not flash_only:
         check_gnomonic(records)
         check_project_srois(records)
-        check_nms(records)
         check_sphiou_bf16(records)
-    check_flash(records)
-    if flash_only:
-        print(f"total {time.perf_counter() - t0:.1f}s (--flash-only: no "
+        check_nms(records)
+    if not frame_only:
+        check_flash(records)
+    if flash_only or frame_only:
+        print(f"total {time.perf_counter() - t0:.1f}s "
+              f"(--{'flash' if flash_only else 'frame-kernels'}-only: no "
               f"result)")
         return 0
     check_small_input()

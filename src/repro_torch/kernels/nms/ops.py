@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.nms.ref import greedy_suppress_rows_ref
 
-MAX_N = 8192  # a row's scores and flags must fit the block's shared memory
+MAX_N = 8192  # a row's scores and flags fit a block's 48 KB of shared memory
 
 
 def greedy_suppress_rows(iou: torch.Tensor, scores: torch.Tensor,
@@ -44,13 +44,20 @@ def greedy_suppress_rows(iou: torch.Tensor, scores: torch.Tensor,
     keep = torch.empty((b, n), dtype=torch.bool, device=dev)
     if keep.numel() == 0:
         return keep
+    # scratch: each entry's 32-bit word row of suppression bits (the words
+    # a row rounded up to a multiple of 4, for 16-byte copies) and each
+    # row's order of visit
+    wp = -(-((n + 31) // 32) // 4) * 4
+    bits = torch.empty((b, n, wp), dtype=torch.int32, device=dev)
+    order = torch.empty((b, n), dtype=torch.int32, device=dev)
     fn = _build.bind("nms", "greedy_suppress_rows_f32",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                               ctypes.c_float,
                                               ctypes.c_void_p])
     _build.count("greedy_suppress_rows")
     _build.check(fn(iou.data_ptr(), sc.data_ptr(), mk.data_ptr(),
-                    keep.data_ptr(), b, n, float(iou_threshold),
+                    keep.data_ptr(), bits.data_ptr(), order.data_ptr(), b, n,
+                    float(iou_threshold),
                     torch.cuda.current_stream(dev).cuda_stream),
                  "greedy_suppress_rows_f32")
     return keep

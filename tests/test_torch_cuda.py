@@ -135,6 +135,88 @@ def test_cuda_sphiou_and_greedy(cuda, b, n):
         tsphere.sph_nms_batch(boxes, scores, mask, backend="torch"))
 
 
+def _clustered_rows(b, n, seed):
+    """Detection-like rows: boxes clustered around a few objects (so that
+    suppression has overlaps to remove), scores with ties, ragged masks."""
+    rng = np.random.default_rng(seed)
+    centers = np.stack([rng.uniform(-math.pi, math.pi, (b, 8)),
+                        rng.uniform(-1.0, 1.0, (b, 8))], -1)
+    pick = rng.integers(0, 8, (b, n))
+    ctr = np.take_along_axis(centers, pick[..., None].repeat(2, -1), 1)
+    boxes = np.concatenate([ctr + rng.normal(0, 0.03, (b, n, 2)),
+                            rng.uniform(0.05, 0.4, (b, n, 2))], -1)
+    scores = np.round(rng.uniform(0.01, 1.0, (b, n)), 2)
+    mask = np.arange(n)[None] < rng.integers(n // 2, n + 1, (b, 1))
+    boxes[~mask] = 0.0
+    return boxes, scores, mask
+
+
+def _greedy_against_plain(cuda, boxes, scores, mask, thr):
+    bx = torch.tensor(boxes, dtype=torch.float32, device=cuda)
+    sc = torch.tensor(scores, dtype=torch.float32, device=cuda)
+    mk = torch.tensor(mask, device=cuda)
+    iou = tsph.sphiou_matrix_batch(bx, bx)
+    keep = tnms.greedy_suppress_rows(iou, sc, mk, thr)
+    assert torch.equal(keep, greedy_suppress_rows_ref(iou, sc, mk, thr))
+    assert not keep[~mk].any()
+    return keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 1), (3, 33), (4, 128), (2, 1024),
+                                 (2, 1025), (1, 8192)])
+def test_cuda_greedy_row_lengths(cuda, b, n):
+    """A batched tick's rows (4 x 128), rows either side of 1024 (word rows
+    staged in shared memory up to there, read from L2 above) and the
+    wrapper's largest, 8192: keep masks equal the plain version's."""
+    boxes, scores, mask = _clustered_rows(b, n, seed=b * 10007 + n)
+    for thr in (0.3, 0.6):
+        _greedy_against_plain(cuda, boxes, scores, mask, thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 128, 1025])
+def test_cuda_greedy_nan_scores(cuda, n):
+    """argmax ranks NaN above every number, so the reference (and the plain
+    version) keeps a NaN-scored box first; then +inf; -0.0 and 0.0 are
+    equal scores, the lower index first."""
+    boxes, scores, mask = _clustered_rows(4, n, seed=n)
+    scores[:, ::7] = np.nan
+    scores[:, 3::11] = np.inf
+    scores[:, 1::13] = 0.0
+    scores[:, 2::13] = -0.0
+    keep = _greedy_against_plain(cuda, boxes, scores, mask, 0.6).cpu().numpy()
+    for r in range(4):
+        nan = np.flatnonzero(np.isnan(scores[r]) & mask[r])
+        assert keep[r, nan[0]]
+
+
+@pytest.mark.cuda
+def test_cuda_project_srois_tick_chunk(cuda):
+    """A batched tick's largest chunk: 9 crops at 896 from 4 distinct
+    1920x3840 frames.  At that width each crop is held to the float64 map,
+    as chip_smoke.py holds the recorded shape."""
+    rng = np.random.default_rng(12)
+    frames = torch.from_numpy(
+        rng.random((4, 1920, 3840, 3), dtype=np.float32)).to(cuda)
+    idx = [i % 4 for i in range(9)]
+    centers = np.stack([rng.uniform(-math.pi, math.pi, 9),
+                        rng.uniform(-1.4, 1.4, 9)], -1).astype(np.float32)
+    fovs = rng.uniform(math.radians(40), math.radians(110),
+                       (9, 2)).astype(np.float32)
+    got = tgno.project_srois_batched(frames, idx, centers, fovs, (896, 896))
+    ref = project_srois_ref(frames, torch.tensor(idx),
+                            torch.from_numpy(centers), torch.from_numpy(fovs),
+                            (896, 896))
+    assert got.shape == (9, 896, 896, 3)
+    for i in range(9):
+        exact = project_sroi_f64(frames[idx[i]], float(centers[i, 0]),
+                                 float(centers[i, 1]), fovs[i].tolist(), 896)
+        err_k = float((got[i].double() - exact).abs().max())
+        err_p = float((ref[i].double() - exact).abs().max())
+        assert err_k <= 2 * err_p + 5e-5
+
+
 # the reference's bf16 gate (tests/test_fused_tick.py)
 BF16_FLIP_BOUND = 0.01
 BF16_NEAR_MARGIN = 0.05
