@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero:
 2. build every CUDA kernel from the sources in the checkout (one ``nvcc``
    per source, all started together), and print the ``-Xptxas -v``
    report (registers, spills, shared memory) of the tensor-core flash
-   kernel, the greedy suppression's two kernels and the batched
-   projection;
+   kernel, the greedy suppression's two kernels, the batched projection
+   and the SphIoU kernels (self and general path);
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes: max |err| against the stated tolerance, the
    kernel's, the plain version's and (where one PyTorch call computes
@@ -21,7 +21,12 @@ Phases, in order; any failure exits non-zero:
    the bf16 option's), the gnomonic outputs are printed as digests (two
    builds that print the same digest agree bit for bit), and the greedy
    kernel is held to its plain version on rows with NaN, +inf and signed
-   zero scores.  Flash attention's two kernels are
+   zero scores.  SphIoU's two entries (float32 and bf16) are checked and
+   timed at 32x512 and at a tick's 4x128 on the self path (the boxes
+   against themselves, as NMS calls it; its output must be exactly
+   symmetric) and on the general path (a copy of the boxes), after a
+   check over every finite float32 of the trig identities the kernel
+   rests on.  Flash attention's two kernels are
    checked on the reference's six test cases (the SIMT kernel in float32
    and bf16 at their head sizes, the tensor-core kernel in bf16 at D=64
    and D=128), at smollm-135m's 4x2048 shape (float32 on the SIMT
@@ -161,7 +166,8 @@ KERNELS = {
 }
 # the CUDA functions of the frame loop's kernels, as a profile names them
 PORT_KERNEL_FUNCTIONS = ("gnomonic_sample_kernel", "project_srois_kernel",
-                         "sphiou_batch_kernel", "greedy_")
+                         "sphiou_self_kernel", "sphiou_cross_kernel",
+                         "greedy_")
 # the kernels the LM serving path runs (bf16 on the tensor-core kernel,
 # the float32 policy on the SIMT one); the frame loop runs the others
 LM_KERNELS = ("flash_attention", "flash_attention_wgmma")
@@ -207,14 +213,15 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def print_ptxas(lines: list[str], kernel: str) -> None:
+def print_ptxas(lines: list[str], kernel: str | tuple[str, ...]) -> None:
     """The ``nvcc -Xptxas -v`` lines of the functions whose mangled name
-    holds ``kernel`` (registers, spills, shared memory), and any
-    warning."""
+    holds ``kernel`` (or one of several; registers, spills, shared
+    memory), and any warning."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     on = False
     for ln in lines:
         if "Compiling entry function" in ln or "Function properties" in ln:
-            on = kernel in ln
+            on = any(k in ln for k in names)
         elif ln.startswith("ptxas info") and "Used" not in ln:
             on = False
         if on or "warning" in ln.lower():
@@ -399,6 +406,51 @@ def nms_inputs(b: int, n: int, seed: int):
     return boxes, scores, mask
 
 
+def check_sphiou_paths(bx, dtype) -> tuple[dict, list[str]]:
+    """One SphIoU entry on rows ``bx``: the self path (the tensor twice, as
+    NMS calls it) and the general path (a copy), each against its plain
+    version and timed; the self path's output must be exactly symmetric.
+    Returns the self path's record and the checks that failed, which the
+    caller raises after its other shapes' times are printed."""
+    import torch
+
+    from repro_torch.kernels.sphiou import ops as iou_ops
+    from repro_torch.kernels.sphiou.ref import (sphiou_ref_batch,
+                                                sphiou_ref_batch_bf16)
+
+    f32 = dtype == torch.float32
+    name = "sphiou_matrix_batch" + ("" if f32 else "_bf16")
+    plain = sphiou_ref_batch if f32 else sphiou_ref_batch_bf16
+    tol = 5e-6 if f32 else BF16_IOU_ATOL
+    b, n, _ = bx.shape
+    rec, failed = None, []
+    for path, y in (("self", bx), ("cross", bx.clone())):
+        got = iou_ops.sphiou_matrix_batch(bx, y, dtype=dtype)
+        err = float((got - plain(bx, y)).abs().max())
+        if err > tol:
+            failed.append(f"{name} {b}x{n} {path} path: max |err| {err}")
+        sym = bool(torch.equal(got, got.transpose(1, 2)))
+        if path == "self" and not sym:
+            failed.append(f"{name} {b}x{n}: the self path is not symmetric")
+        ms = time_ms(lambda: iou_ops.sphiou_matrix_batch(bx, y, dtype=dtype))
+        plain_ms = time_ms(lambda: plain(bx, y), reps=5)
+        # per pair, counted from the source, a transcendental as one
+        # operation: one sincos (2), two atan2, two asin, four sin and ~50
+        # arithmetic; the self path computes each unordered pair once
+        pairs = b * n * (n + 1) // 2 if path == "self" else b * n * n
+        b_ms, b_by = bound_ms(b * n * 16 * (1 if path == "self" else 2)
+                              + b * n * n * 4, pairs * 60)
+        print(f"kernel {name} B={b} N={n} {path} path: max|err| {err:.3g} "
+              f"(tol {tol:.3g}), symmetric {sym}, ms {ms:.4f}, plain_ms "
+              f"{plain_ms:.4f}, library_ms null, bound_ms {b_ms:.5f} "
+              f"({b_by})")
+        if path == "self":
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       shape=f"B={b} N={n}, self path")
+    return rec, failed
+
+
 def check_nms(records: dict) -> None:
     import numpy as np
     import torch
@@ -406,9 +458,9 @@ def check_nms(records: dict) -> None:
     from repro_torch.kernels.nms import ops as nms_ops
     from repro_torch.kernels.nms.ref import greedy_suppress_rows_ref
     from repro_torch.kernels.sphiou import ops as iou_ops
-    from repro_torch.kernels.sphiou.ref import sphiou_ref_batch
 
     dev = torch.device("cuda")
+    failed = []
     # the recorded shapes, then a tick's rows (four streams padded to 128)
     # on the float32 IoU and on the bf16 option's
     for b, n, iou_dtype in ((8, 128, torch.float32), (32, 512, torch.float32),
@@ -421,19 +473,8 @@ def check_nms(records: dict) -> None:
         what = f"B={b} N={n}" + (" (bf16 IoU)" if iou_dtype != torch.float32
                                  else "")
         if iou_dtype == torch.float32:  # the bf16 entry: check_sphiou_bf16
-            ref = sphiou_ref_batch(bx, bx)
-            err = float((iou - ref).abs().max())
-            check(err <= 5e-6, f"sphiou_matrix_batch {b}x{n}: max |err| {err}")
-            ms = time_ms(lambda: iou_ops.sphiou_matrix_batch(bx, bx))
-            plain_ms = time_ms(lambda: sphiou_ref_batch(bx, bx), reps=5)
-            # per pair, counted from the source: two directions of sincos
-            # x3, atan2, asin, sin x2 and ~25 arithmetic, plus areas and
-            # the ratio
-            b_ms, b_by = bound_ms(2 * b * n * 16 + b * n * n * 4,
-                                  b * n * n * 80)
-            print(f"kernel sphiou_matrix_batch {what}: max|err| {err:.3g} "
-                  f"(tol 5e-6), ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-                  f"library_ms null, bound_ms {b_ms:.5f} ({b_by})")
+            rec, bad = check_sphiou_paths(bx, torch.float32)
+            failed += bad
         keep = nms_ops.greedy_suppress_rows(iou, sc, mk, 0.6)
         keep_ref = greedy_suppress_rows_ref(iou, sc, mk, 0.6)
         check(bool(torch.equal(keep, keep_ref)),
@@ -450,12 +491,15 @@ def check_nms(records: dict) -> None:
               f"{g_plain:.4f}, library_ms null, bound_ms {gb_ms:.6f} "
               f"({gb_by})")
         if (b, n) == (32, 512):
-            records["sphiou_matrix_batch"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, shape=f"B={b} N={n}")
+            records["sphiou_matrix_batch"] = rec
             records["greedy_suppress_rows"] = dict(
                 max_abs_err=0.0, ms=g_ms, plain_ms=g_plain, bound_ms=gb_ms,
                 bound_by=gb_by, library_ms=None, shape=f"B={b} N={n}")
+    check(not failed, "; ".join(failed))
+    bad = iou_ops.trig_check(dev)
+    print(f"sphiou trig premises (sinf odd, cosf even, sincosf equal to "
+          f"both, bit for bit): {bad} finite float32 x >= 0 fail")
+    check(bad == 0, f"sphiou trig premises fail at {bad} arguments")
 
     # a tick's rows with NaN scores (argmax ranks NaN above every number,
     # so the reference keeps a NaN-scored box first), +inf, and -0.0
@@ -521,27 +565,22 @@ def check_sphiou_bf16(records: dict) -> None:
                                                 sphiou_ref_batch_bf16)
 
     dev = torch.device("cuda")
-    b, n = 32, 512
-    boxes, _, _ = nms_inputs(b, n, b + n)  # row 3's inputs
-    bx = torch.tensor(boxes, dtype=torch.float32, device=dev)
-    got = iou_ops.sphiou_matrix_batch(bx, bx, dtype=torch.bfloat16)
-    ref = sphiou_ref_batch_bf16(bx, bx)
-    err = float((got - ref).abs().max())
-    check(err <= BF16_IOU_ATOL,
-          f"sphiou_matrix_batch_bf16 {b}x{n}: max |err| {err}")
-    exact = sphiou_ref_batch(bx, bx)
-    d_kernel = float((got - exact).abs().max())
-    d_plain = float((ref - exact).abs().max())
-    ms = time_ms(lambda: iou_ops.sphiou_matrix_batch(bx, bx,
-                                                     dtype=torch.bfloat16))
-    plain_ms = time_ms(lambda: sphiou_ref_batch_bf16(bx, bx), reps=5)
-    # the same work as the float32 entry (its arithmetic runs in float32)
-    b_ms, b_by = bound_ms(2 * b * n * 16 + b * n * n * 4, b * n * n * 80)
-    print(f"kernel sphiou_matrix_batch_bf16 B={b} N={n}: max|err| {err:.3g} "
-          f"against the bf16 plain version (tol {BF16_IOU_ATOL:.3g}); from "
-          f"the float32 IoU: kernel {d_kernel:.3g}, plain {d_plain:.3g}; "
-          f"ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms null, "
-          f"bound_ms {b_ms:.5f} ({b_by})")
+    # row 3's inputs, then a tick's rows (four streams padded to 128)
+    failed = []
+    for b, n in ((32, 512), (4, 128)):
+        boxes, _, _ = nms_inputs(b, n, b + n)
+        bx = torch.tensor(boxes, dtype=torch.float32, device=dev)
+        rec, bad = check_sphiou_paths(bx, torch.bfloat16)
+        failed += bad
+        if (b, n) != (32, 512):
+            continue
+        records["sphiou_matrix_batch_bf16"] = rec
+        got = iou_ops.sphiou_matrix_batch(bx, bx, dtype=torch.bfloat16)
+        exact = sphiou_ref_batch(bx, bx)
+        d_kernel = float((got - exact).abs().max())
+        d_plain = float((sphiou_ref_batch_bf16(bx, bx) - exact).abs().max())
+        print(f"kernel sphiou_matrix_batch_bf16 B={b} N={n}: from the "
+              f"float32 IoU: kernel {d_kernel:.3g}, plain {d_plain:.3g}")
     flips = total = far_flips = 0
     for boxes, scores in bench_box_sets():
         k32 = sph_nms_batch(boxes, scores, backend="cuda")
@@ -558,10 +597,8 @@ def check_sphiou_bf16(records: dict) -> None:
           f"{BF16_NEAR_MARGIN} of the threshold (bound 0)")
     check(rate <= BF16_FLIP_BOUND and far_flips == 0,
           f"bf16 SphIoU flip gate: rate {rate}, far-row flips {far_flips}")
-    records["sphiou_matrix_batch_bf16"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, shape=f"B={b} N={n}",
-        keep_flip_rate=rate)
+    records["sphiou_matrix_batch_bf16"]["keep_flip_rate"] = rate
+    check(not failed, "; ".join(failed))
 
 
 FLASH_CASES = [  # the reference's (tests/test_kernels.py)
@@ -1320,6 +1357,8 @@ def main() -> int:
     print_ptxas(_build.ptxas_report("attention"), "flash_wgmma_kernel")
     print_ptxas(_build.ptxas_report("nms"), "greedy_")
     print_ptxas(_build.ptxas_report("gnomonic"), "project_srois_kernel")
+    print_ptxas(_build.ptxas_report("sphiou"),
+                ("sphiou_self_kernel", "sphiou_cross_kernel"))
 
     records: dict = {}
     flash_only = "--flash-only" in sys.argv[1:]

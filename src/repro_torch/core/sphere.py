@@ -30,9 +30,10 @@ serving path, copied unchanged: it compares in float64.
     path: float32 IoU and the same greedy, on any device;
   * ``"cuda"``  — the SphIoU kernel (``repro_torch.kernels.sphiou``)
     plus the per-row greedy kernel (``repro_torch.kernels.nms``);
-  * ``"auto"``  — ``"cuda"`` when a CUDA device is present and the
-    batch holds at least ``_AUTO_DEVICE_MIN_ELEMS`` boxes, else
-    ``"host"``.  A failure of the ``cuda`` path raises.
+  * ``"auto"``  — ``"cuda"`` when a CUDA device is present, the
+    batch holds at least ``_AUTO_DEVICE_MIN_ELEMS`` boxes and its rows
+    are at most the greedy kernel's ``MAX_N`` long, else ``"host"``.  A
+    failure of the ``cuda`` path raises.
 
 The greedy order is descending score with lowest-index-first
 tie-breaking in every backend, so their keep masks agree exactly.
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.nms.ops import MAX_N
 
 Tensor = torch.Tensor
 
@@ -293,9 +295,13 @@ def _sph_nms_batch_host(
 def nms_auto_backend(b: int, n: int) -> str:
     """The backend ``sph_nms_batch(backend="auto")`` picks for (B, N):
     the CUDA kernels for pod-scale batches when a CUDA device is
-    present, the NumPy host path otherwise."""
+    present, the NumPy host path otherwise.  Rows longer than the greedy
+    kernel's ``MAX_N`` take the host path whatever B is: the kernel
+    raises on them, and the host path takes any N."""
     pod_scale = b * n >= _AUTO_DEVICE_MIN_ELEMS
-    return "cuda" if torch.cuda.is_available() and pod_scale else "host"
+    fits = n <= MAX_N
+    return ("cuda" if torch.cuda.is_available() and pod_scale and fits
+            else "host")
 
 
 def _iou_compute_dtype(iou_dtype) -> torch.dtype | None:
@@ -360,14 +366,17 @@ def sph_nms_batch(
     One row per stream/frame; rows are suppressed independently but in
     one dispatch.  Padded entries (``mask == False``) are never kept.
     ``backend`` is one of ``auto``/``host``/``torch``/``cuda`` (module
-    docstring).  The host path keeps the inputs' float64; ``torch`` and
+    docstring); ``auto`` sends rows longer than the greedy kernel's
+    ``MAX_N`` (8192) to the host path, where ``cuda`` asked for by name
+    raises on them.  The host path keeps the inputs' float64; ``torch`` and
     ``cuda`` cast to float32, as the reference's device path does.
     ``device`` places the ``torch`` backend (default ``cuda``); the
     ``cuda`` backend needs a CUDA device.  Rows are independent, so the
     device paths process very large batches in row chunks.
 
     ``iou_dtype`` (``torch`` and ``cuda`` backends only; the host path
-    raises ``ValueError``) lowers the IoU compute precision:
+    raises ``ValueError``, so does ``auto`` where it picks the host)
+    lowers the IoU compute precision:
     ``torch.bfloat16`` runs the SphIoU kernel's bf16 entry (``cuda``) or
     the framework SphIoU on bf16 boxes (``torch``, the reference's
     ``jit`` path).  Near-threshold pairs can flip their keep decision.

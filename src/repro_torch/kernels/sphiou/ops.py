@@ -4,7 +4,10 @@ replaces the Pallas kernels ``repro/kernels/sphiou/sphiou.py``
 float32 or with their bf16 compute option.
 
 For tensors on the CPU the wrappers run the plain PyTorch version
-(``ref.py``); for CUDA tensors they launch the kernel or raise.
+(``ref.py``); for CUDA tensors they launch the kernel or raise.  Boxes
+against themselves (one tensor passed twice, as NMS calls it, or two
+contiguous float32 tensors of the same shape at the same address) take
+the kernel's self path, which computes each unordered pair once.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def sphiou_matrix_batch(boxes_a: torch.Tensor, boxes_b: torch.Tensor, *,
     if boxes_a.device != boxes_b.device:
         raise ValueError("boxes on different devices")
     a = boxes_a.to(torch.float32).contiguous()
-    b = boxes_b.to(torch.float32).contiguous()
+    b = a if boxes_b is boxes_a else boxes_b.to(torch.float32).contiguous()
     if a.device.type == "cpu":
         return plain(a, b)
     if a.device.type != "cuda":
@@ -68,6 +71,24 @@ def sphiou_matrix_batch(boxes_a: torch.Tensor, boxes_b: torch.Tensor, *,
         _build.check(fn(a[lo].data_ptr(), b[lo].data_ptr(),
                         out[lo].data_ptr(), hi - lo, n, m, stream), entry)
     return out
+
+
+def trig_check(device: torch.device | str = "cuda") -> int:
+    """Count the finite float32 ``x >= 0`` at which the card's precise
+    ``sinf(-x) == -sinf(x)``, ``cosf(-x) == cosf(x)`` or ``sincosf`` equal
+    to ``sinf`` and ``cosf`` fails, bit for bit: the premises on which the
+    kernel computes both directions of a pair from one ``sincosf``.  0 on
+    a card where they hold."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the check runs on a CUDA device, not {dev}")
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    fn = _build.bind("sphiou", "sphiou_trig_check",
+                     [ctypes.c_uint, ctypes.c_uint, _P, _P])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(fn(0, 0x7F800000, bad.data_ptr(), stream),
+                 "sphiou_trig_check")
+    return int(bad)
 
 
 def sphiou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor

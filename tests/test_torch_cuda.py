@@ -217,6 +217,38 @@ def test_cuda_project_srois_tick_chunk(cuda):
         assert err_k <= 2 * err_p + 5e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(3, 37), (4, 128), (32, 512)])
+def test_cuda_sphiou_self_and_general_paths(cuda, b, n, dtype):
+    """The self path (one tensor twice, as NMS calls it), the general path
+    (the same boxes in another tensor, and N != M), each against its plain
+    version; the self path's output exactly symmetric.  Row 0 is all
+    padding; the other rows end in padding."""
+    boxes, _, _ = _clustered_rows(b, n, seed=b * 31 + n)
+    boxes[0] = 0.0
+    bx = torch.tensor(boxes, dtype=torch.float32, device=cuda)
+    other = torch.tensor(_clustered_rows(b, n // 2 + 5, seed=n)[0],
+                         dtype=torch.float32, device=cuda)
+    plain, tol = ((sphiou_ref_batch, 5e-6) if dtype == torch.float32
+                  else (sphiou_ref_batch_bf16, 2.0 ** -6))
+    got = tsph.sphiou_matrix_batch(bx, bx, dtype=dtype)
+    assert torch.equal(got, got.transpose(1, 2))
+    assert not got[0].any()
+    torch.testing.assert_close(got, plain(bx, bx), atol=tol, rtol=0)
+    for x, y in ((bx, bx.clone()), (bx, other), (other, bx)):
+        torch.testing.assert_close(tsph.sphiou_matrix_batch(x, y, dtype=dtype),
+                                   plain(x, y), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_sphiou_trig_check(cuda):
+    """sinf odd, cosf even and sincosf equal to both, bit for bit, at every
+    finite float32: the kernel computes both directions of a pair from one
+    sincosf of dt on that ground."""
+    assert tsph.trig_check(cuda) == 0
+
+
 # the reference's bf16 gate (tests/test_fused_tick.py)
 BF16_FLIP_BOUND = 0.01
 BF16_NEAR_MARGIN = 0.05
@@ -353,10 +385,12 @@ def test_cuda_flash_attention_reads_strided_views(cuda):
 def test_cuda_launches_are_counted(cuda):
     _build.reset_launch_counts()
     bx = torch.zeros((2, 4, 4), device=cuda)
-    tsph.sphiou_matrix_batch(bx, bx)
+    tsph.sphiou_matrix_batch(bx, bx)  # the self path
     assert _build.launch_counts() == {"sphiou_matrix_batch": 1}
     tsph.sphiou_matrix_batch(bx.cpu(), bx.cpu())  # the plain version
     assert _build.launch_counts() == {"sphiou_matrix_batch": 1}
+    tsph.sphiou_matrix_batch(bx, bx.clone())  # the general path
+    assert _build.launch_counts() == {"sphiou_matrix_batch": 2}
     tsph.sphiou_matrix_batch(bx, bx, dtype=torch.bfloat16)
     q = torch.zeros((1, 3, 2, 16), device=cuda)
     tattn.flash_attention(q, q, q)
@@ -364,7 +398,7 @@ def test_cuda_launches_are_counted(cuda):
     qb = torch.zeros((1, 3, 2, 64), device=cuda, dtype=torch.bfloat16)
     tattn.flash_attention(qb, qb, qb)
     tattn.flash_attention(qb.cpu(), qb.cpu(), qb.cpu())
-    assert _build.launch_counts() == {"sphiou_matrix_batch": 1,
+    assert _build.launch_counts() == {"sphiou_matrix_batch": 2,
                                       "sphiou_matrix_batch_bf16": 1,
                                       "flash_attention": 1,
                                       "flash_attention_wgmma": 1}

@@ -16,6 +16,7 @@ from repro.core import sphere as jsphere
 from repro.core import sroi as jsroi
 from repro_torch.core import sphere as tsphere
 from repro_torch.core import sroi as tsroi
+from repro_torch.kernels.nms.ops import MAX_N
 
 
 def _boxes(rng, shape):
@@ -137,6 +138,28 @@ def test_sph_nms_batch_auto_and_errors():
         assert tsphere.nms_auto_backend(64, 64) == "host"
         with pytest.raises(RuntimeError):
             tsphere.sph_nms_batch(boxes, scores, backend="torch")
+
+
+def test_auto_nms_sends_rows_longer_than_the_greedy_kernel_to_host(
+        monkeypatch):
+    """With a card present, ``auto`` takes the CUDA kernels for a tick's
+    rows and the host path for rows longer than the greedy kernel's
+    ``MAX_N``, on which the kernel raises.  The keep mask is checked on
+    rows just past a lowered limit: a row of ``MAX_N + 1`` would make an
+    8193 x 8193 float64 IoU on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tsphere.nms_auto_backend(4, 128) == "cuda"
+    assert tsphere.nms_auto_backend(1, MAX_N) == "cuda"
+    assert tsphere.nms_auto_backend(1, MAX_N + 1) == "host"
+    assert tsphere.nms_auto_backend(64, MAX_N + 1) == "host"
+    monkeypatch.setattr(tsphere, "MAX_N", 40)
+    boxes, scores, mask = _nms_case(6, b=16, n=41)  # B*N = 656: pod scale
+    np.testing.assert_array_equal(
+        tsphere.sph_nms_batch(boxes, scores, mask, backend="auto"),
+        tsphere.sph_nms_batch(boxes, scores, mask, backend="host"))
+    with pytest.raises(ValueError, match="iou_dtype"):
+        tsphere.sph_nms_batch(boxes, scores, mask, backend="auto",
+                              iou_dtype=torch.bfloat16)
 
 
 def test_sph_nms_single_row_and_incremental_match_reference():
