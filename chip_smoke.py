@@ -45,14 +45,21 @@ Phases, in order; any failure exits non-zero:
    from a seeded generator) on synthetic 1920x3840 ERP video.  One
    stream runs ``OmniSenseLoop.process_frame`` for 2 frames (the
    per-request path: gnomonic sampling kernel), and one of its SRoIs goes
-   through ``infer_sroi`` at every rung; then 4 streams run 3
-   batched ticks (``begin_frame``, ``launch_srois_batched`` per variant
-   with the fused projection and crop cache, ``finish_frame(defer_nms=
-   True)``, one ``sph_nms_batch(backend="cuda")`` over the padded tick,
-   ``finalize_detections``), and each tick's rows once more through the
-   bf16 SphIoU option (``iou_dtype=torch.bfloat16``), its keep flips
-   against float32 reported.  Launch counts are set to 0 just before each
-   of the two paths and read just after; every kernel must have run;
+   through ``infer_sroi`` at every rung; then 4 streams run 3 pod
+   ticks through ``PodServer.step`` under the sync policy (the tick's
+   frames staged once, from pinned memory; emission; the variant queues
+   drained into bucketed ``launch_srois_batched`` chunks with the fused
+   projection and crop cache; ingestion with ``_suppress_tick``'s one
+   batched NMS over the padded rows), and each tick's padded rows once
+   more through the bf16 SphIoU option (``iou_dtype=torch.bfloat16``),
+   its keep flips against the server's float32 suppression reported.
+   Each tick line gives the wall ms split into emission, drain and
+   ingestion, the requests per variant, the detections before and after
+   NMS, the frame uploads (one a stream) and crop-cache hits, and the NMS
+   backend and padded rows.  Launch counts are set to 0 just before each
+   of the two paths and read just after; every kernel must have run.
+   Then the serve launcher (``repro_torch.launch.serve``) runs its
+   oracle pod under ``--policy async --pod-allocate``;
 6. the LM serving path at full width: smollm-135m (``full_config()``,
    published widths, 30 layers, bf16 weights from a seeded generator)
    with ``attention_impl="flash"``: ``lm_prefill_step`` on 4 prompts of
@@ -79,9 +86,9 @@ result line.
 the gnomonic sampler, the batched projection, SphIoU and the greedy
 suppression), for the same use; it prints no result line either.
 
-``--profile`` also profiles the last batched tick, one LM prefill step
-and four decode steps: the card's busy share of each, its top kernels and
-the frame loop's kernels among them.
+``--profile`` also profiles the last pod tick, one LM prefill step and
+four decode steps: the card's busy share of each, its host-to-device
+copies, its top kernels and the frame loop's kernels among them.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -96,6 +103,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -139,6 +147,9 @@ LM_F32_LOGIT_ATOL = 1e-4
 ATTN_BF16_RTOL = 2.0 ** -7
 ATTN_BF16_ATOL = 2e-5
 ATTN_DROPPED_TILE = 64
+
+# the pod tick's top batch bucket: the server's and the backend's ladders
+MAX_BATCH = 8
 
 # the kernels and what each replaces in the JAX package
 KERNELS = {
@@ -946,6 +957,56 @@ def check_small_input() -> None:
           f"{worst['scores']:.3g} (tol 1e-3)")
 
 
+def tick_server(loops, backends, **kw):
+    """A ``PodServer`` that records what the tick lines print, through
+    overrides that call the server's own methods: the drain's and the
+    ingestion's wall ms (``phase``, which the caller zeroes each tick),
+    and ``_suppress_tick``'s inputs (``tick``): the raw row lengths, the
+    padding decision, and the padded rows as the server builds them, with
+    the float32 keep mask it applied, for the bf16 SphIoU flip check."""
+    import numpy as np
+
+    from repro_torch.core.sphere import nms_auto_backend, pad_detection_rows
+    from repro_torch.serving.server import PodServer
+
+    class TickServer(PodServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.phase = dict(drain=0.0, ingest=0.0)
+            self.tick = None
+
+        def _execute(self, ops, timeline, close):
+            t = time.perf_counter()
+            super()._execute(ops, timeline, close)
+            self.phase["drain"] += (time.perf_counter() - t) * 1e3
+
+        def _ingest(self):
+            t = time.perf_counter()
+            super()._ingest()
+            self.phase["ingest"] += (time.perf_counter() - t) * 1e3
+
+        def _suppress_tick(self, plans):
+            raw = [len(res.detections) for _, res in plans]
+            live = [res for _, res in plans if res.detections]
+            rows = [list(res.detections) for res in live]
+            pad = self.buckets.pad_nms_rows
+            nms = nms_auto_backend(len(plans),
+                                   pad(max(map(len, rows), default=0)))
+            boxes, scores, mask = (
+                pad_detection_rows(rows, pad_n=pad, total_rows=len(plans))
+                if nms == "cuda" else pad_detection_rows(rows))
+            wall = super()._suppress_tick(plans)
+            keep = np.zeros(mask.shape, bool)
+            for r, (res, row) in enumerate(zip(live, rows)):
+                kept = {id(d) for d in res.detections}
+                keep[r, :len(row)] = [id(d) in kept for d in row]
+            self.tick = dict(raw=raw, backend=nms, boxes=boxes, scores=scores,
+                             mask=mask, keep=keep)
+            return wall
+
+    return TickServer(loops, backends, **kw)
+
+
 def check_detections(results) -> int:
     import numpy as np
 
@@ -962,17 +1023,21 @@ def run_main_path(profile: bool = False) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core.sphere import pad_detection_rows, sph_nms_batch
+    from repro_torch.core.sphere import sph_nms_batch
     from repro_torch.data.synthetic import make_video, render_erp
     from repro_torch.kernels import _build
     from repro_torch.models import detector as det_mod
+    from repro_torch.serving.batching import ShapeBuckets
     from repro_torch.serving.scheduler import TorchDetectorBackend
 
     t0 = time.perf_counter()
     cfgs = list(det_mod.PAPER_LADDER)
     params = [det_mod.init_params(torch.Generator().manual_seed(100 + i), c,
                                   device="cuda") for i, c in enumerate(cfgs)]
-    backend = TorchDetectorBackend(cfgs, params, conf=0.01, max_det=16)
+    backend = TorchDetectorBackend(
+        cfgs, params, conf=0.01, max_det=16,
+        buckets=ShapeBuckets.for_max_batch(
+            MAX_BATCH, tuple(sorted({c.input_size for c in cfgs}))))
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"main path: PAPER_LADDER {[c.input_size for c in cfgs]} px, "
           f"{n_params / 1e6:.1f}M parameters, 80 classes, init "
@@ -1013,75 +1078,72 @@ def run_main_path(profile: bool = False) -> dict:
     counts["per_request"] = _build.launch_counts()
     print(f"per-request launches: {counts['per_request']}")
 
-    # -- batched tick: four streams, three frames ---------------------------
+    # -- the pod tick: four streams, three frames, through PodServer.step ----
     videos = [make_video(n_frames=8, n_objects=20, seed=s)
               for s in (21, 22, 23, 24)]
-    variants, loops = make_loops(backend, videos, 80, 5, None)
-    ticks = [[render_erp(v, f, height=h, width=w) for v in videos]
-             for f in (1, 2, 3)]
+    _, loops = make_loops(backend, videos, 80, 5, None)
+    ticks = {f: [render_erp(v, f, height=h, width=w) for v in videos]
+             for f in (1, 2, 3)}
+    server = tick_server(loops, [backend] * len(loops), max_batch=MAX_BATCH,
+                         buckets=backend.buckets,
+                         frame_source=lambda s, f: ticks[f][s])
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     total_dets = 0
-    for f, frames in zip((1, 2, 3), ticks):
+    for f in (1, 2, 3):
         # the last tick runs under the profiler when asked (--profile)
         prof = (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
             if profile and f == 3 else contextlib.nullcontext())
+        uploads, hits = backend.frame_uploads, backend.crop_cache_hits
+        server.phase = dict(drain=0.0, ingest=0.0)
+        n_timelines = len(server.timelines)
         with prof:
-            t = [time.perf_counter()]
-            pendings = [lp.begin_frame(fr) for lp, fr in zip(loops, frames)]
-            t.append(time.perf_counter())
-            # launch every variant's chunks, then resolve them all, so the
-            # host work of one overlaps the device work of the next
-            launched = []
-            for v in variants:
-                slots = [(s, req) for s, p in enumerate(pendings)
-                         for req in p.requests if req.variant.name == v.name]
-                if slots:
-                    launched.append((v.name, slots, backend.launch_srois_batched(
-                        [(req.frame, req.region) for _, req in slots], v)))
-            t.append(time.perf_counter())
-            dets = [[None] * len(p.requests) for p in pendings]
-            for _, slots, resolve in launched:
-                for (s, req), d in zip(slots, resolve()):
-                    dets[s][req.slot] = d
-            t.append(time.perf_counter())
-            results = [lp.finish_frame(p, d, defer_nms=True)
-                       for lp, p, d in zip(loops, pendings, dets)]
-            raw = [len(r.detections) for r in results]
-            boxes, scores, mask = pad_detection_rows(
-                [r.detections for r in results], backend.buckets.pad_nms_rows)
-            keep = sph_nms_batch(boxes, scores, mask, backend="cuda")
-            check(not keep[~mask].any(), "NMS kept a padded entry")
-            for lp, r, row in zip(loops, results, keep):
-                lp.finalize_detections(r, row[:len(r.detections)]
-                                       if r.detections else None)
+            t = time.perf_counter()
+            server.step(f)
             torch.cuda.synchronize()
-            t.append(time.perf_counter())
-        # the bf16 SphIoU option on the same padded rows, outside the
+            wall = (time.perf_counter() - t) * 1e3
+        rec = server.tick
+        check(not rec["keep"][~rec["mask"]].any(), "NMS kept a padded entry")
+        # the bf16 SphIoU option on the tick's own padded rows, outside the
         # tick's timing: its keep flips against the float32 suppression
-        keep16 = sph_nms_batch(boxes, scores, mask, backend="cuda",
-                               iou_dtype=torch.bfloat16)
-        check(not keep16[~mask].any(), "bf16 NMS kept a padded entry")
-        flips16 = int((keep16 != keep).sum())
-        n = check_detections(results)
+        keep16 = sph_nms_batch(rec["boxes"], rec["scores"], rec["mask"],
+                               backend="cuda", iou_dtype=torch.bfloat16)
+        check(not keep16[~rec["mask"]].any(), "bf16 NMS kept a padded entry")
+        flips16 = int((keep16 != rec["keep"]).sum())
+        results = [loop._history[-1] for loop in loops]
+        n = check_detections([types.SimpleNamespace(detections=r)
+                              for r in results])
         total_dets += n
-        ph = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
-        print(f"tick {f}: requests per variant "
-              f"{ {name: len(sl) for name, sl, _ in launched} }, NMS rows "
-              f"{boxes.shape[0]}x{boxes.shape[1]}, detections {raw} -> "
-              f"{[len(r.detections) for r in results]}, wall ms "
-              f"{sum(ph):.1f} (begin_frame {ph[0]:.1f}, launch {ph[1]:.1f}, "
-              f"resolve {ph[2]:.1f}, finish + NMS {ph[3]:.1f}); bf16 SphIoU "
-              f"option: {flips16} keep flips of {int(mask.sum())} boxes")
+        per_variant: dict = {}
+        for tl in server.timelines[n_timelines:]:
+            for ev in tl.events:
+                per_variant[ev.variant] = per_variant.get(ev.variant, 0) + ev.b
+        drain, ingest = server.phase["drain"], server.phase["ingest"]
+        print(f"tick {f}: requests per variant {per_variant}, detections "
+              f"{rec['raw']} -> {[len(r) for r in results]}, wall ms "
+              f"{wall:.1f} (emission {wall - drain - ingest:.1f}, drain "
+              f"{drain:.1f}, ingest {ingest:.1f}); frame uploads "
+              f"{backend.frame_uploads - uploads}, crop-cache hits "
+              f"{backend.crop_cache_hits - hits}; NMS {rec['backend']} on "
+              f"rows {rec['boxes'].shape[0]}x{rec['boxes'].shape[1]}; bf16 "
+              f"SphIoU option: {flips16} keep flips of {int(rec['mask'].sum())}"
+              f" boxes")
+        check(backend.frame_uploads - uploads == len(videos),
+              f"tick {f} uploaded {backend.frame_uploads - uploads} frames, "
+              f"not one a stream ({len(videos)})")
+        check(not backend._staged, "a staged frame outlived its tick")
         if profile and f == 3:
-            print_profile(prof, sum(ph))
+            print_profile(prof, wall)
     counts["batched"] = _build.launch_counts()
-    print(f"batched launches: {counts['batched']}; crop cache "
+    print(f"pod tick launches: {counts['batched']}; crop cache "
           f"{backend.crop_cache_hits} hits / {backend.crop_cache_misses} "
-          f"misses; {backend.trace_count} (variant, batch) shapes")
-    check(total_dets > 0, "the batched ticks produced no detections")
+          f"misses; {backend.trace_count} (variant, batch) shapes; "
+          f"{server.stats.frames} frames, {server.stats.dispatches} "
+          f"dispatches, incremental NMS {server._nms_inc.hits} row hits / "
+          f"{server._nms_inc.misses} misses")
+    check(total_dets > 0, "the pod ticks produced no detections")
     launches = {k: counts["per_request"].get(k, 0) + counts["batched"].get(k, 0)
                 for k in KERNELS if k not in LM_KERNELS}
     for k, n in launches.items():
@@ -1316,11 +1378,37 @@ def print_profile(prof, wall_ms: float, what: str = "tick 3",
     n_kernels = sum(r[1] for r in rows)
     print(f"profile of {what}: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
           f"wall ({100 * busy / wall_ms:.1f}%), {n_kernels} device ops")
+    h2d = [r for r in rows if r[2].startswith("Memcpy HtoD")]
+    print(f"  host-to-device copies {sum(r[0] for r in h2d):.3f} ms in "
+          f"{sum(r[1] for r in h2d)} copies "
+          f"({', '.join(f'{r[2]} {r[1]}x' for r in h2d) or 'none'})")
     for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
     port = [r for r in rows if any(k in r[2] for k in PORT_KERNEL_FUNCTIONS)]
     for ms, n, name in sorted(port, reverse=True):
         print(f"  port kernel {ms:9.4f} ms  {n:5d}x  {name[:90]}")
+
+
+def run_serve_launcher() -> None:
+    """The port's serve launcher (``repro_torch.launch.serve``) on its
+    oracle pod: the async policy with pod-level allocation over virtual
+    replica groups.  No kernel runs there; its summary lines print."""
+    import io
+
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--streams", "8", "--frames", "8", "--policy", "async",
+                    "--pod-allocate", "--devices", "8"])
+    lines = out.getvalue().splitlines()
+    check(bool(lines) and lines[0].startswith("served 64 frames"),
+          f"serve launcher: {lines[:1]}")
+    for line in lines:
+        print(f"serve launcher (oracle, --policy async --pod-allocate): "
+              f"{line}")
+    print(f"serve launcher: {(time.perf_counter() - t) * 1e3:.1f} ms wall")
 
 
 def _leaves(tree):
@@ -1378,6 +1466,7 @@ def main() -> int:
     check_small_input()
     profile = "--profile" in sys.argv[1:]
     launches = run_main_path(profile=profile)
+    run_serve_launcher()
     launches.update(run_lm_path(profile=profile))
 
     kernels = []

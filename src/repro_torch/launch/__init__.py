@@ -1,0 +1,2 @@
+"""Launchers of the port (``repro_torch.launch.serve``: the pod serving
+driver)."""

@@ -402,6 +402,15 @@ class TorchDetectorBackend:
         ``trace_count`` counts the distinct (variant, padded batch)
         shapes a serving lifetime has run.
 
+    A tick's frames upload once (:meth:`stage_frames`, which
+    ``PodServer.step`` calls before emission): one asynchronous copy per
+    distinct frame from a pinned staging buffer, so the copies run
+    behind the host's planning, and every chunk of the tick reads them;
+    :meth:`release_frames` drops them when the tick ends.  A frame that
+    is not staged (a request carried across ticks, a direct
+    :meth:`launch_srois_batched` caller) is uploaded with its chunk.
+    ``frame_uploads`` counts the frames uploaded either way.
+
     Everything runs on ``device`` (default ``cuda``; with no CUDA device
     and no device given the constructor raises).  Float32 throughout:
     the constructor turns TF32 off (``repro_torch.device.set_fp32_policy``).
@@ -437,11 +446,76 @@ class TorchDetectorBackend:
         self._crop_cache: dict = {}
         self.crop_cache_hits = 0
         self.crop_cache_misses = 0
+        # the tick's staged frames: id(host frame) -> (host frame, the
+        # (F, H, W, C) device stack holding it, its slot).  The host
+        # frame is held for the tick, so its id cannot be reused.
+        self._staged: dict[int, tuple] = {}
+        # pinned staging buffers by frame shape, each with the CUDA
+        # event of its last copy (refilled only once that has completed)
+        self._pinned: dict[tuple, list] = {}
+        self.frame_uploads = 0
+
+    def stage_frames(self, frames) -> None:
+        """Upload the tick's distinct frames once, ahead of its chunks.
+
+        Frames of one shape share one (F, H, W, C) float32 device stack,
+        so a chunk whose crops all come from staged frames projects from
+        the stack as it is.  On the card each frame is copied into a
+        pinned buffer and sent with ``non_blocking=True``, so the host
+        goes on planning while the copy runs; a backend on the CPU
+        stages a plain tensor (pinning needs a card).  Frames staged by
+        an earlier call that was not released are dropped first."""
+        self.release_frames()
+        by_shape: dict[tuple, list] = {}
+        seen: set[int] = set()
+        for f in frames:
+            if f is None or id(f) in seen:
+                continue
+            seen.add(id(f))
+            by_shape.setdefault(tuple(f.shape), []).append(f)
+        cuda = self.device.type == "cuda"
+        for shape, group in by_shape.items():
+            stack = torch.empty((len(group),) + shape, dtype=torch.float32,
+                                device=self.device)
+            for k, f in enumerate(group):
+                host = torch.from_numpy(np.asarray(f))
+                if cuda:
+                    # the host copy into pinned memory runs on all the
+                    # CPU threads (PyTorch's copy), the upload on the DMA
+                    # engine while the host goes on planning
+                    buf = self._pinned_buffer(shape, k)
+                    buf[0].copy_(host)
+                    stack[k].copy_(buf[0], non_blocking=True)
+                    buf[1].record()
+                else:
+                    stack[k].copy_(host)
+                self.frame_uploads += 1
+                self._staged[id(f)] = (f, stack, k)
+
+    def _pinned_buffer(self, shape: tuple, k: int) -> list:
+        """The ``k``-th pinned staging buffer of ``shape``, as
+        ``[tensor, event]``, once the last copy out of it has completed."""
+        pool = self._pinned.setdefault(shape, [])
+        while len(pool) <= k:
+            pool.append([torch.empty(shape, dtype=torch.float32,
+                                     pin_memory=True), torch.cuda.Event()])
+        pool[k][1].synchronize()
+        return pool[k]
+
+    def release_frames(self) -> None:
+        """Drop the staged device frames (the tick has ended): a device
+        copy never outlives its tick."""
+        self._staged.clear()
 
     def _device_frame(self, frame_img) -> torch.Tensor:
-        """``frame_img`` as a float32 tensor on the backend's device,
-        uploaded anew on every call (as the reference does), so a frame
-        is always served from its own pixels."""
+        """``frame_img`` as a float32 tensor on the backend's device: the
+        tick's staged copy where it is staged, else uploaded anew on
+        every call (as the reference does), so a frame is always served
+        from its own pixels."""
+        ent = self._staged.get(id(frame_img))
+        if ent is not None and ent[0] is frame_img:
+            return ent[1][ent[2]]
+        self.frame_uploads += 1
         if isinstance(frame_img, torch.Tensor):
             return frame_img.to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.asarray(frame_img, dtype=np.float32),
@@ -582,22 +656,8 @@ class TorchDetectorBackend:
             self.crop_cache_misses += 1
             miss.append(i)
         if miss:
-            # each distinct frame of the chunk is uploaded once, into
-            # its slot of one (F, H, W, C) stack
-            slot: dict[int, int] = {}  # id(frame) -> index into `frames`
-            distinct = []
-            frame_idx = []
-            for i in miss:
-                f = chunk[i][0]
-                if id(f) not in slot:
-                    slot[id(f)] = len(distinct)
-                    distinct.append(f)
-                frame_idx.append(slot[id(f)])
-            frames = torch.empty(
-                (len(distinct),) + tuple(distinct[0].shape),
-                dtype=torch.float32, device=self.device)
-            for k, f in enumerate(distinct):
-                frames[k].copy_(torch.as_tensor(f, dtype=torch.float32))
+            frames, frame_idx = self._chunk_frames([chunk[i][0]
+                                                    for i in miss])
             fresh = project_srois_batched(
                 frames, frame_idx,
                 [chunk[i][1].center for i in miss],
@@ -612,6 +672,33 @@ class TorchDetectorBackend:
                     self._cache_put(keys[i], chunk[i][0], guard,
                                     fresh[j].clone(), chunk[i][1])
         return torch.stack(rows), geoms
+
+    def _chunk_frames(self, chunk_frames: list) -> tuple:
+        """The (F, H, W, C) device frames a chunk's crops read, and each
+        crop's index into them.  Where every crop's frame is staged in
+        one stack (:meth:`stage_frames`; found by identity), that stack
+        as it is; otherwise each distinct frame of the chunk is uploaded
+        once, into its slot of a new stack."""
+        staged = [self._staged.get(id(f)) for f in chunk_frames]
+        if all(ent is not None and ent[0] is f
+               for ent, f in zip(staged, chunk_frames)):
+            stacks = {id(ent[1]) for ent in staged}
+            if len(stacks) == 1:
+                return staged[0][1], [ent[2] for ent in staged]
+        slot: dict[int, int] = {}  # id(frame) -> index into `distinct`
+        distinct = []
+        frame_idx = []
+        for f in chunk_frames:
+            if id(f) not in slot:
+                slot[id(f)] = len(distinct)
+                distinct.append(f)
+            frame_idx.append(slot[id(f)])
+        frames = torch.empty((len(distinct),) + tuple(distinct[0].shape),
+                             dtype=torch.float32, device=self.device)
+        for k, f in enumerate(distinct):
+            frames[k].copy_(torch.as_tensor(f, dtype=torch.float32))
+            self.frame_uploads += 1
+        return frames, frame_idx
 
     @torch.inference_mode()
     def launch_srois_batched(self, items, variant: acc_mod.ModelProfile,

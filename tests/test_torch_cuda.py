@@ -427,3 +427,88 @@ def test_cuda_backend_serves_each_frame_from_its_own_pixels(cuda, frames):
         want = cpu._project(render_erp(video, f, height=192, width=384),
                             region, 64)
         torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=0)
+
+
+class _Unstaged:
+    """A backend without the staging hooks (``PodServer`` calls a hook
+    only where the backend has one): every chunk uploads its frames."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        if name in ("stage_frames", "release_frames"):
+            raise AttributeError(name)
+        return getattr(self._inner, name)
+
+
+def _card_pod(backend, videos):
+    from repro_torch.core.omnisense import OmniSenseLoop
+    from repro_torch.serving import profiles
+    from repro_torch.serving.network import NetworkModel
+    from repro_torch.serving.scheduler import OmniSenseLatencyModel
+    from repro_torch.serving.server import PodServer
+
+    variants = profiles.make_ladder(n_categories=16)[:2]
+    lat = OmniSenseLatencyModel(profiles.paper_profile(), NetworkModel())
+    loops = []
+    for video in videos:
+        loop = OmniSenseLoop(variants, lat, backend, budget_s=2.0,
+                             n_categories=16, explore_costs=[0.1, 0.2])
+        loop.seed_history(video.visible_objects(0))
+        loops.append(loop)
+    frames = {}
+
+    def source(s, f):
+        if (s, f) not in frames:
+            frames[(s, f)] = render_erp(videos[s], f, height=192, width=384)
+        return frames[(s, f)]
+
+    return PodServer(loops, [backend] * len(videos), max_batch=8,
+                     frame_source=source)
+
+
+@pytest.mark.cuda
+def test_cuda_staged_pod_tick_equals_unstaged(cuda):
+    """``PodServer.step`` on the card: the tick whose frames were staged
+    (one pinned, asynchronous upload per stream) detects exactly what the
+    tick whose chunks upload their own frames detects; each tick uploads
+    each distinct frame once, and no staged frame outlives its tick."""
+    cfgs = [dataclasses.replace(tdet.PAPER_LADDER[i], input_size=64,
+                                n_classes=16, width_mult=0.25,
+                                depth_mult=0.34) for i in (0, 1)]
+    params = [tdet.init_params(torch.Generator().manual_seed(i), c)
+              for i, c in enumerate(cfgs)]
+    staged_b = TorchDetectorBackend(cfgs, params, conf=0.01, max_det=4)
+    plain_b = TorchDetectorBackend(cfgs, params, conf=0.01, max_det=4)
+    videos = [make_video(n_frames=8, n_objects=20, seed=s) for s in (7, 8, 9)]
+    staged = _card_pod(staged_b, videos)
+    plain = _card_pod(_Unstaged(plain_b), videos)
+    n = 0
+    for f in (1, 2, 3):
+        staged.step(f)
+        plain.step(f)
+        assert staged_b.frame_uploads == len(videos) * f
+        assert not staged_b._staged
+        for a, b in zip(staged.loops, plain.loops):
+            got, want = a._history[-1], b._history[-1]
+            assert [(d.category, d.score) for d in got] == \
+                [(d.category, d.score) for d in want]
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x.box, y.box)
+            n += len(got)
+    assert n > 0
+    assert plain_b.frame_uploads >= staged_b.frame_uploads
+    # one pinned buffer a stream, each refilled after its last copy ended
+    pool = staged_b._pinned[(192, 384, 3)]
+    assert len(pool) == len(videos)
+    assert all(buf.is_pinned() and event.query() for buf, event in pool)
+
+
+@pytest.mark.cuda
+def test_cuda_measure_host_profile(cuda):
+    from repro_torch.serving.profiles import measure_host_profile
+
+    prof = measure_host_profile(reduced=True, repeats=2)
+    assert list(prof) == [c.name for c in tdet.PAPER_LADDER[:3]]
+    assert all(t > 0 and math.isfinite(t) for t in prof.values())

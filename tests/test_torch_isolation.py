@@ -5,10 +5,14 @@
   blocked.
 * No hidden CPU fallback: an entry point given no device raises when no
   CUDA device is present.
+* The port's ``PodServer`` batches through real variant queues, not a
+  ``collections.Counter`` simulation (the twin of
+  ``tests/test_repo_hygiene.py``'s gate on the reference).
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -36,6 +40,11 @@ def test_every_module_imports_without_jax_or_reference():
     assert "repro_torch.kernels.gnomonic.ops" in mods
     assert "repro_torch.kernels.attention.ops" in mods
     assert "repro_torch.models.transformer" in mods
+    for m in ("serving.server", "serving.runtime", "serving.telemetry",
+              "serving.pod_allocation", "serving.placement",
+              "serving.traffic", "serving.batching", "serving.baselines",
+              "launch.serve"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -76,3 +85,29 @@ def test_no_device_means_cuda_or_raise():
     assert gnomonic_sample(erp, uv, uv, device="cpu").shape == (4, 4, 3)
     region = SRoI(center=(0.0, 0.0), fov=(1.0, 1.0))
     assert backend._project(erp, region, 8).shape == (8, 8, 3)
+
+
+def test_pod_server_has_no_counter_simulation():
+    from repro_torch.serving import server as server_mod
+
+    src = inspect.getsource(server_mod)
+    assert "Counter" not in src, (
+        "PodServer must batch variants through real per-variant queues "
+        "(repro_torch.serving.batching), not a collections.Counter "
+        "simulation")
+    assert "VariantQueues" in src
+
+
+def test_placement_without_devices_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.serving import profiles
+    from repro_torch.serving.placement import VariantPlacement
+
+    variants = profiles.make_ladder()[:2]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VariantPlacement(variants)
+    # named device slots need no card
+    assert VariantPlacement.virtual(variants, 2).n_devices == 2
+    assert VariantPlacement(variants, devices=[torch.device("cpu")]
+                            ).n_devices == 1
