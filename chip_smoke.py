@@ -60,7 +60,29 @@ Phases, in order; any failure exits non-zero:
    of the two paths and read just after; every kernel must have run.
    Then the serve launcher (``repro_torch.launch.serve``) runs its
    oracle pod under ``--policy async --pod-allocate``;
-6. the LM serving path at full width: smollm-135m (``full_config()``,
+6. the mixed-task pod: 4 streams (``stream_tasks_for("mixed", 4)``) on
+   the same synthetic 1920x3840 video, built through the task registry
+   (``build_task_streams``: the union ladder, each task's latency model)
+   and served by the real backends: the 2 detection streams by
+   ``TorchDetectorBackend`` on the full ``PAPER_LADDER``, the 2 action
+   streams by ``TorchActionBackend`` on all four ``ACTION_LADDER`` rungs
+   at their published shapes (d_model 64, seeded random weights).  3
+   ticks through ``PodServer.step`` (sync policy, ``max_batch`` 8); each
+   tick line gives the wall ms split into emission, drain and ingestion,
+   the requests per (task, variant), the action predictions, the
+   detections before and after NMS, the frame uploads (one a stream) and
+   the action path's ``gnomonic_sample`` launches, counted apart from the
+   detection streams'.  Then every action rung runs a batch of 8 at its
+   published shape through ``infer_srois_batched``, with the kernel and
+   with the plain projection on the card: logits within
+   ``ACTION_LOGIT_ATOL``, equal categories, and the kernel's crops held to
+   the float64 map.  Then the replay lane on the oracle backends (host
+   only): ``repro_torch.launch.replay record`` and ``check`` of a closed
+   corpus (8 streams, async, ``--pod-allocate``), a mixed-task open-loop
+   corpus (``--slo 2.0 --admission slo``) and a 2-pod fleet corpus
+   (``--routing affinity``), each of which must replay bit-identically,
+   and the serve launcher's ``--open-loop --pods 2 --tasks mixed`` fleet;
+7. the LM serving path at full width: smollm-135m (``full_config()``,
    published widths, 30 layers, bf16 weights from a seeded generator)
    with ``attention_impl="flash"``: ``lm_prefill_step`` on 4 prompts of
    2048 tokens, 32 greedy ``lm_decode_step``s, then one prefill of
@@ -86,12 +108,13 @@ result line.
 the gnomonic sampler, the batched projection, SphIoU and the greedy
 suppression), for the same use; it prints no result line either.
 
-``--profile`` also profiles the last pod tick, one LM prefill step and
-four decode steps: the card's busy share of each, its host-to-device
+``--profile`` also profiles the last pod tick, the last mixed tick, one
+LM prefill step and four decode steps: the card's busy share of each, its host-to-device
 copies, its top kernels and the frame loop's kernels among them.
 
-The last lines are the kernels' JSON record, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+The last lines are the kernels' JSON record (with each kernel's launches
+by path: the frame loop of phase 5, the mixed pod of phase 6, the LM of
+phase 7), the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
 """
 
@@ -150,6 +173,12 @@ ATTN_DROPPED_TILE = 64
 
 # the pod tick's top batch bucket: the server's and the backend's ladders
 MAX_BATCH = 8
+# the action head's logits, with the gnomonic sampling kernel against the
+# plain projection, both on the card: the crops differ only by the
+# sampler's float32 rounding (within 3e-6), which the head's float32
+# layers carry through; the CPU parity tests hold the head to the
+# reference's within the same 1e-4
+ACTION_LOGIT_ATOL = 1e-4
 
 # the kernels and what each replaces in the JAX package
 KERNELS = {
@@ -280,7 +309,9 @@ def check_gnomonic(records: dict) -> None:
     # seam-padded NCHW copy for the library yardstick (F.grid_sample)
     erp_nchw = torch.cat([erp, erp[:, :1]], dim=1).permute(2, 0, 1)[None]
     erp_nchw = erp_nchw.contiguous()
-    cases = [("416", (0.3, 0.2), 60, 416), ("640", (math.pi, -0.4), 75, 640),
+    # the action head's crops (96 and 128), then the detector's
+    cases = [("96", (1.2, 0.3), 63, 96), ("128", (-0.7, -0.2), 63, 128),
+             ("416", (0.3, 0.2), 60, 416), ("640", (math.pi, -0.4), 75, 640),
              ("1280", (-2.0, 0.1), 100, 1280),
              ("640-pole", (0.0, 1.5), 90, 640)]
     for label, (ct, cp), fov_deg, s in cases:
@@ -772,7 +803,7 @@ def check_flash(records: dict) -> None:
           f"float32 causal: max|err| {err32:.3g} (atol 2e-5 + rtol 1e-4; "
           f"the control with {ATTN_DROPPED_TILE} keys dropped {ctl_err:.3g}, "
           f"fails)")
-    # the float32 policy's LM prefill (phase 6, 1 x 2048), the shape the
+    # the float32 policy's LM prefill (phase 7, 1 x 2048), the shape the
     # SIMT kernel serves on a path: checked, then the kernel, SDPA in
     # float32 (TF32 off, as the port's policy sets it) and the plain
     # version timed in turn
@@ -1019,7 +1050,9 @@ def check_detections(results) -> int:
     return n
 
 
-def run_main_path(profile: bool = False) -> dict:
+def run_main_path(profile: bool = False) -> tuple[dict, list]:
+    """Phase 5; returns the launches and the ladder's parameters (the
+    mixed pod of phase 6 serves the same detectors)."""
     import numpy as np
     import torch
 
@@ -1148,11 +1181,279 @@ def run_main_path(profile: bool = False) -> dict:
                 for k in KERNELS if k not in LM_KERNELS}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
-    return launches
+    return launches, params
 
 
 # --------------------------------------------------------------------------
-# phase 6: the LM serving path
+# phase 6: the mixed detection + action pod, then replay and fleet
+# --------------------------------------------------------------------------
+
+
+def count_launches_of(obj, method: str, into: dict) -> None:
+    """Wrap ``obj.method`` so that the kernel launches made inside it are
+    added to ``into`` (the launches of one backend, apart from the
+    others that share the global counts)."""
+    from repro_torch.kernels import _build
+
+    inner = getattr(obj, method)
+
+    def counted(*args, **kwargs):
+        before = _build.launch_counts()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            for k, n in _build.launch_counts().items():
+                into[k] = into.get(k, 0) + n - before.get(k, 0)
+
+    setattr(obj, method, counted)
+
+
+def check_action_rungs(act_cfgs, act_params, buckets, frame, regions) -> None:
+    """Every ``ACTION_LADDER`` rung at its published shape, a batch of 8,
+    through ``infer_srois_batched`` twice on the card: with the gnomonic
+    sampling kernel and with the plain projection.  The logits of the
+    two agree within ``ACTION_LOGIT_ATOL``, their categories are equal,
+    and each kernel crop is held to the float64 map as
+    ``check_project_srois`` holds the batched projection."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gnomonic.ref import project_sroi_f64
+    from repro_torch.models import action as act_mod
+    from repro_torch.serving.tasks import TorchActionBackend, action_ladder
+
+    kern = TorchActionBackend(act_cfgs, act_params, buckets=buckets)
+    plain = TorchActionBackend(act_cfgs, act_params, buckets=buckets,
+                               use_kernel=False)
+    items = [(frame, r) for r in regions]
+    # the frame staged once, as a tick stages it (unstaged, every crop
+    # would upload its 88.5 MB frame anew, as the reference's backend does)
+    kern.stage_frames([frame])
+    plain.stage_frames([frame])
+    device_frame = torch.from_numpy(frame).cuda()
+    for variant, cfg in zip(action_ladder(), act_cfgs):
+        idx = variant.index - 1
+        # a full window: clip_len frames of the same regions
+        t = time.perf_counter()
+        for f in range(cfg.clip_len):
+            kern.set_frame(f)
+            got = kern.infer_srois_batched(items, variant)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / cfg.clip_len
+        for f in range(cfg.clip_len):
+            plain.set_frame(f)
+            want = plain.infer_srois_batched(items, variant)
+        check(len(got) == 8 and all(len(d) == 1 for d in got),
+              f"{variant.name}: not one prediction an item")
+        keys = [(idx, round(r.center[0], 1), round(r.center[1], 1))
+                for r in regions]
+        k_clips = torch.stack([torch.stack(kern._clips[k]) for k in keys])
+        p_clips = torch.stack([torch.stack(plain._clips[k]) for k in keys])
+        check(tuple(k_clips.shape) == (8, cfg.clip_len, cfg.input_size,
+                                       cfg.input_size, 3),
+              f"{variant.name}: batch shape {tuple(k_clips.shape)}")
+        with torch.inference_mode():
+            k_logits = act_mod.apply(kern.params[idx], k_clips, cfg)
+            p_logits = act_mod.apply(plain.params[idx], p_clips, cfg)
+        check(bool(torch.isfinite(k_logits).all()),
+              f"{variant.name}: logits not finite")
+        err = float((k_logits - p_logits).abs().max())
+        crop_err = float((k_clips - p_clips).abs().max())
+        err_k = err_p = 0.0
+        for r, kc, pc in zip(regions, k_clips[:, -1], p_clips[:, -1]):
+            exact = project_sroi_f64(device_frame, r.center[0], r.center[1],
+                                     r.fov, cfg.input_size)
+            err_k = max(err_k, float((kc.double() - exact).abs().max()))
+            err_p = max(err_p, float((pc.double() - exact).abs().max()))
+        check([d[0].category for d in got] == [d[0].category for d in want],
+              f"{variant.name}: categories differ with the plain projection")
+        check(err <= ACTION_LOGIT_ATOL,
+              f"{variant.name}: logits {err} from the plain projection's")
+        check(err_k <= 2 * err_p + 5e-5,
+              f"{variant.name}: crops {err_k} from the float64 map, the "
+              f"plain projection {err_p}")
+        print(f"action rung {variant.name}: batch 8 x {cfg.clip_len} x "
+              f"{cfg.input_size}^2 x 3, wall ms {ms:.2f} a batch (8 crops "
+              f"and the forward); kernel "
+              f"vs plain projection: crops max|err| {crop_err:.3g}, logits "
+              f"max|err| {err:.3g} (tol {ACTION_LOGIT_ATOL}), categories "
+              f"equal; against the float64 map: kernel {err_k:.3g}, plain "
+              f"{err_p:.3g} (tol 2 x plain + 5e-5)")
+    check(kern.frame_uploads == plain.frame_uploads == 1,
+          "the rungs' batches uploaded their frame more than once")
+    kern.release_frames()
+    plain.release_frames()
+
+
+def run_mixed_path(det_params, profile: bool = False) -> dict:
+    """The mixed pod: 2 detection streams on the full ``PAPER_LADDER``
+    and 2 action streams on the four ``ACTION_LADDER`` rungs, 3 ticks
+    through ``PodServer.step``; then every action rung at batch 8.
+    Returns the launches of the ticks."""
+    import torch
+
+    from repro_torch.core.sroi import SRoI
+    from repro_torch.data.synthetic import make_video, render_erp
+    from repro_torch.kernels import _build
+    from repro_torch.models import action as act_mod
+    from repro_torch.models import detector as det_mod
+    from repro_torch.serving.scheduler import TorchDetectorBackend
+    from repro_torch.serving.tasks import (TorchActionBackend,
+                                           build_task_streams,
+                                           default_action_configs,
+                                           shape_buckets_for,
+                                           stream_tasks_for,
+                                           task_for_variant)
+
+    t0 = time.perf_counter()
+    tasks = stream_tasks_for("mixed", 4)
+    videos = [make_video(n_frames=8, n_objects=20, seed=s)
+              for s in (31, 32, 33, 34)]
+    _, loops, _, _ = build_task_streams(tasks, videos, [2.0] * len(tasks))
+    buckets = shape_buckets_for(tasks, MAX_BATCH)
+    det = TorchDetectorBackend(list(det_mod.PAPER_LADDER), det_params,
+                               conf=0.01, max_det=16, buckets=buckets)
+    act_cfgs = default_action_configs()
+    act_params = [act_mod.init_params(torch.Generator().manual_seed(200 + i),
+                                      c, device="cuda")
+                  for i, c in enumerate(act_cfgs)]
+    act = TorchActionBackend(act_cfgs, act_params, buckets=buckets)
+    act_launches: dict = {}
+    count_launches_of(act, "infer_srois_batched", act_launches)
+    backends = [det if t == "detection" else act for t in tasks]
+    # the registry's loops, served by the real backends
+    for loop, backend, video in zip(loops, backends, videos):
+        loop.backend = backend
+        loop.seed_history(video.visible_objects(0))
+    h, w = 1920, 3840
+    ticks = {f: [render_erp(v, f, height=h, width=w) for v in videos]
+             for f in (1, 2, 3)}
+    server = tick_server(loops, backends, max_batch=MAX_BATCH,
+                         buckets=buckets,
+                         frame_source=lambda s, f: ticks[f][s])
+    print(f"mixed pod: streams {tasks}; detection PAPER_LADDER "
+          f"{[c.input_size for c in det.cfgs]} px, action "
+          f"{[(c.name, c.clip_len, c.input_size) for c in act_cfgs]} "
+          f"(d_model {act_cfgs[0].d_model}, {act_cfgs[0].n_layers} layer, "
+          f"{act_cfgs[0].n_heads} heads), set-up "
+          f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    n_actions = 0
+    for f in (1, 2, 3):
+        prof = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+            if profile and f == 3 else contextlib.nullcontext())
+        uploads = (det.frame_uploads, act.frame_uploads)
+        act_gs = act_launches.get("gnomonic_sample", 0)
+        server.phase = dict(drain=0.0, ingest=0.0)
+        n_timelines = len(server.timelines)
+        with prof:
+            t = time.perf_counter()
+            server.step(f)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        rec = server.tick
+        check(not rec["keep"][~rec["mask"]].any(), "NMS kept a padded entry")
+        results = [loop._history[-1] for loop in loops]
+        check_detections([types.SimpleNamespace(detections=r)
+                          for r in results])
+        per_variant: dict = {}
+        for tl in server.timelines[n_timelines:]:
+            for ev in tl.events:
+                key = f"{task_for_variant(ev.variant)}/{ev.variant}"
+                per_variant[key] = per_variant.get(key, 0) + ev.b
+        preds = [(d.category, round(d.score, 3)) for s, r in
+                 enumerate(results) if tasks[s] != "detection" for d in r]
+        n_actions += len(preds)
+        up = (det.frame_uploads - uploads[0], act.frame_uploads - uploads[1])
+        drain, ingest = server.phase["drain"], server.phase["ingest"]
+        print(f"mixed tick {f}: wall ms {wall:.1f} (emission "
+              f"{wall - drain - ingest:.1f}, drain {drain:.1f}, ingest "
+              f"{ingest:.1f}); requests per (task, variant) {per_variant}; "
+              f"action predictions (class, score) {preds}; detections "
+              f"{rec['raw']} -> {[len(r) for r in results]}; frame uploads "
+              f"{sum(up)} (detection {up[0]}, action {up[1]}); action "
+              f"gnomonic_sample launches "
+              f"{act_launches.get('gnomonic_sample', 0) - act_gs}; NMS "
+              f"{rec['backend']} on rows {rec['boxes'].shape[0]}x"
+              f"{rec['boxes'].shape[1]}")
+        check(up == (2, 2), f"mixed tick {f} uploaded {up} frames, not one "
+              f"a stream")
+        check(not det._staged and not act._staged,
+              "a staged frame outlived its tick")
+        if profile and f == 3:
+            print_profile(prof, wall, what="mixed tick 3")
+    launches = _build.launch_counts()
+    print(f"mixed pod launches: {launches}; of them the action path's "
+          f"{act_launches}; {server.stats.frames_by_task} frames by task, "
+          f"{server.stats.dispatches} dispatches")
+    check(n_actions > 0, "the action streams predicted nothing")
+    check(act_launches.get("gnomonic_sample", 0) > 0,
+          "the action path did not launch gnomonic_sample")
+    check(launches.get("project_srois_batched", 0) > 0,
+          "the detection streams did not launch project_srois_batched")
+    # every rung at its published shape, batch 8, on an action stream's
+    # tick-3 frame (the allocator need not have chosen every rung)
+    regions = [SRoI(center=(-2.9 + 0.75 * k, 0.35 * math.sin(k)),
+                    fov=(1.1, 0.9)) for k in range(8)]
+    check_action_rungs(act_cfgs, act_params, buckets, ticks[3][1], regions)
+    return launches
+
+
+def run_replay_lane() -> None:
+    """The replay-determinism lane and the fleet, on the oracle backends
+    (host only): three corpora recorded with ``repro_torch.launch.replay
+    record`` and re-driven with ``check``, each of which must be
+    bit-identical, then the serve launcher's mixed-task 2-pod fleet."""
+    import io
+    import shutil
+
+    from repro_torch.launch import replay as replay_cli
+    from repro_torch.launch import serve
+
+    out_dir = ROOT / "build" / "chip_smoke_replay"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    corpora = {
+        "closed": ["--streams", "8", "--policy", "async", "--pod-allocate"],
+        "mixed": ["--streams", "8", "--open-loop", "--tasks", "mixed",
+                  "--slo", "2.0", "--admission", "slo"],
+        "fleet": ["--streams", "8", "--open-loop", "--pods", "2",
+                  "--routing", "affinity"],
+    }
+    for name, args in corpora.items():
+        path = str(out_dir / f"{name}.jsonl")
+        t = time.perf_counter()
+        for argv in (["record", "--out", path] + args, ["check", path]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = replay_cli.main(argv)
+            lines = buf.getvalue().splitlines()
+            for line in lines:
+                print(f"replay {name} ({argv[0]}): {line}")
+            check(rc == 0, f"replay {argv[0]} of the {name} corpus exited "
+                  f"{rc}")
+        check(len(lines) == 1 and "bit-identical" in lines[0],
+              f"the {name} corpus did not replay bit-identically")
+        print(f"replay {name}: {(time.perf_counter() - t) * 1e3:.0f} ms "
+              f"wall (record and check)")
+    shutil.rmtree(out_dir)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--open-loop", "--pods", "2", "--tasks", "mixed"])
+    lines = buf.getvalue().splitlines()
+    check(bool(lines) and lines[0].startswith("fleet [least-loaded routing, "
+                                              "2 pods]"),
+          f"serve launcher fleet: {lines[:1]}")
+    for line in lines:
+        print(f"serve launcher (oracle, --open-loop --pods 2 --tasks mixed):"
+              f" {line}")
+
+
+# --------------------------------------------------------------------------
+# phase 7: the LM serving path
 # --------------------------------------------------------------------------
 
 
@@ -1465,19 +1766,25 @@ def main() -> int:
         return 0
     check_small_input()
     profile = "--profile" in sys.argv[1:]
-    launches = run_main_path(profile=profile)
+    # each path's launches, counted from 0 just before it and read after
+    by_path = {}
+    by_path["frame_loop"], det_params = run_main_path(profile=profile)
     run_serve_launcher()
-    launches.update(run_lm_path(profile=profile))
+    by_path["mixed_pod"] = run_mixed_path(det_params, profile=profile)
+    del det_params
+    run_replay_lane()
+    by_path["lm"] = run_lm_path(profile=profile)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]
+        paths = {p: c.get(name, 0) for p, c in by_path.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=rec["max_abs_err"],
+            launches=sum(paths.values()), max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            shape=rec["shape"]))
+            shape=rec["shape"], launches_by_path=paths))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

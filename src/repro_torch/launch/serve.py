@@ -59,14 +59,13 @@ per pod by ``serving_scale_plan``:
         --open-loop --fps 0.5 --slo 2.0 --admission slo \
         --devices 8 --pods 4 --routing affinity
 
-Two branches need slices of the port still to come and exit with a
-message naming the slice: ``--pods`` (the fleet tier and the elastic
-scale plan: slice D, open loop, replay and fleet) and ``--tasks
-action|mixed`` (the task registry and the action head: slice E).
-Everything else (``--events``, ``--open-loop``, ``--pod-allocate``,
-``--devices`` on virtual slots, the three policies) runs as in the
-reference, on the oracle backend.  ``main`` takes ``argv`` (default
-``sys.argv[1:]``), so a script can drive it in-process.
+Every option runs as in the reference, on the oracle backends:
+``--events``, ``--open-loop``, ``--pod-allocate``, ``--devices`` on
+virtual slots, the three policies, ``--pods`` (a ``FleetServer`` whose
+pods split ``--devices`` by ``serving_scale_plan``) and ``--tasks
+action|mixed`` (streams built through the task registry).  ``main``
+takes ``argv`` (default ``sys.argv[1:]``), so a script can drive it
+in-process.
 """
 
 from __future__ import annotations
@@ -148,12 +147,6 @@ def main(argv: list[str] | None = None) -> None:
     if args.pods and not args.open_loop:
         ap.error("--pods requires --open-loop (the fleet tier serves "
                  "arrival-clocked traffic)")
-    if args.pods > 0:
-        raise SystemExit(
-            "--pods needs the fleet tier and the elastic scale plan "
-            "(repro_torch.serving.fleet, distributed/elastic.py), which "
-            "the port has not reached yet: slice D, open loop, replay and "
-            "fleet")
 
     policy = make_policy(args.policy or "sync",
                          pod_allocate=args.pod_allocate,
@@ -176,10 +169,16 @@ def main(argv: list[str] | None = None) -> None:
                                        budget_s=args.budget,
                                        explore_costs=costs))
     else:
-        raise SystemExit(
-            f"--tasks {args.tasks} needs the task registry and the action "
-            "head (repro_torch.serving.tasks, models/action.py), which the "
-            "port has not reached yet: slice E, action recognition")
+        from repro_torch.serving import tasks as task_registry
+
+        stream_tasks = task_registry.stream_tasks_for(args.tasks,
+                                                      args.streams)
+        videos = [make_video(n_frames=args.frames + 8,
+                             n_objects=30 + 5 * (s % 4), seed=100 + s)
+                  for s in range(args.streams)]
+        variants, loops, backends, cost_fn = \
+            task_registry.build_task_streams(
+                stream_tasks, videos, [args.budget] * args.streams)
 
     placement = None
     if args.devices > 0:
@@ -193,6 +192,42 @@ def main(argv: list[str] | None = None) -> None:
         from repro_torch.serving.telemetry import JsonlSink
 
         telemetry = JsonlSink(args.events)
+
+    if args.pods > 0:
+        from repro_torch.distributed.elastic import serving_scale_plan
+        from repro_torch.serving.fleet import (FleetServer,
+                                               format_fleet_report)
+        from repro_torch.serving.traffic import ArrivalProcess
+
+        per_pod = serving_scale_plan(args.devices,
+                                     args.pods)["per_pod_devices"]
+
+        def make_pod(pod_id: int) -> PodServer:
+            pod_placement = None
+            if per_pod > 0:
+                from repro_torch.serving.placement import VariantPlacement
+
+                pod_placement = VariantPlacement.virtual(
+                    variants, per_pod, cost_fn=cost_fn)
+            pol = make_policy(args.policy or "sync",
+                              pod_allocate=args.pod_allocate,
+                              admission=args.admission)
+            return PodServer(loops, backends, max_batch=args.max_batch,
+                             placement=pod_placement, policy=pol)
+
+        fleet = FleetServer(make_pod, args.pods, routing=args.routing,
+                            telemetry=telemetry)
+        horizon_s = args.frames / args.fps
+        traffic = ArrivalProcess(args.streams, fps=args.fps,
+                                 jitter=args.jitter, seed=0,
+                                 horizon_s=horizon_s)
+        fstats = fleet.run_open_loop(traffic, slo_s=args.slo)
+        if telemetry is not None:
+            telemetry.close()
+            print(f"telemetry event log: {args.events}")
+        for line in format_fleet_report(fstats, horizon_s):
+            print(line)
+        return
 
     server = PodServer(loops, backends, max_batch=args.max_batch,
                        placement=placement, policy=policy,

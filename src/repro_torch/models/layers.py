@@ -1,5 +1,5 @@
-"""The layers the CSP detector and the LM use (port of the matching
-subset of ``repro.models.layers``).
+"""The layers the CSP detector, the LM and the action head use (port of
+the matching subset of ``repro.models.layers``).
 
 Params are plain nested dicts of tensors, as in the reference.  The
 public layout follows the reference too: activations are channel-last
@@ -95,6 +95,24 @@ def rmsnorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
     return (y * p["scale"].to(torch.float32)).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype=torch.float32, device="cpu") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
+    """LayerNorm over the last axis with the reference's constants: eps
+    1e-6 (torch's default is 1e-5) and the population variance
+    (``jnp.var``; ``torch.var`` defaults to the unbiased one), in
+    float32, cast back to ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
+
+
 def init_groupnorm(d: int, groups: int = 32, dtype=torch.float32,
                    device="cpu") -> Params:
     del groups  # the group count is a call-time choice
@@ -147,15 +165,20 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d(p: Params, x: Tensor, *, stride: int = 1, groups: int = 1,
-           policy: DtypePolicy = F32) -> Tensor:
-    """"SAME"-padded convolution of NCHW ``x`` with an OIHW weight."""
-    kh, kw = p["w"].shape[2], p["w"].shape[3]
-    top, bottom = _same_pads(x.shape[2], kh, stride)
-    left, right = _same_pads(x.shape[3], kw, stride)
+def conv2d(p: Params, x: Tensor, *, stride: int = 1, padding: str = "SAME",
+           groups: int = 1, policy: DtypePolicy = F32) -> Tensor:
+    """Convolution of NCHW ``x`` with an OIHW weight, with XLA's
+    ``"SAME"`` padding (the default) or ``"VALID"`` (none: the output
+    has floor((size - k) / stride) + 1 positions)."""
     x = policy.cast_in(x)
-    if top or bottom or left or right:
-        x = F.pad(x, (left, right, top, bottom))
+    if padding == "SAME":
+        kh, kw = p["w"].shape[2], p["w"].shape[3]
+        top, bottom = _same_pads(x.shape[2], kh, stride)
+        left, right = _same_pads(x.shape[3], kw, stride)
+        if top or bottom or left or right:
+            x = F.pad(x, (left, right, top, bottom))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
     b = p["b"].to(policy.compute_dtype) if "b" in p else None
     return F.conv2d(x, p["w"].to(policy.compute_dtype), b, stride=stride,
                     padding=0, groups=groups)
@@ -177,6 +200,12 @@ def mish(x: Tensor) -> Tensor:
 
 def silu(x: Tensor) -> Tensor:
     return F.silu(x)
+
+
+def gelu(x: Tensor) -> Tensor:
+    """GELU with the tanh approximation, the reference's
+    ``jax.nn.gelu(x, approximate=True)`` (torch's default is exact)."""
+    return F.gelu(x, approximate="tanh")
 
 
 # --------------------------------------------------------------------------

@@ -386,66 +386,21 @@ class OracleBackend:
         return self._detect(gt, demoted, region_tag=0, ref_sr=4 * math.pi)
 
 
-class TorchDetectorBackend:
-    """Real path: gnomonic projection (CUDA kernels) + the PyTorch
-    detector ladder; the port of the reference's ``JaxDetectorBackend``.
+class FrameStaging:
+    """A tick's frames uploaded once, shared by the real backends
+    (:class:`TorchDetectorBackend`, ``tasks.TorchActionBackend``).
 
-    Exposes BOTH execution paths of the serving loop:
-
-      * :meth:`infer_sroi` — the per-request path (one forward per PI,
-        its projection through the gnomonic sampling kernel);
-      * :meth:`launch_srois_batched` — the tick path: one variant's
-        crops are projected together (the batched projection kernel,
-        behind a cross-tick crop cache), zero-padded up to a batch-size
-        bucket and pushed through ONE ``apply`` + masked ``decode``.
-        PyTorch runs eagerly, so there is no compile cache;
-        ``trace_count`` counts the distinct (variant, padded batch)
-        shapes a serving lifetime has run.
-
-    A tick's frames upload once (:meth:`stage_frames`, which
-    ``PodServer.step`` calls before emission): one asynchronous copy per
-    distinct frame from a pinned staging buffer, so the copies run
-    behind the host's planning, and every chunk of the tick reads them;
-    :meth:`release_frames` drops them when the tick ends.  A frame that
-    is not staged (a request carried across ticks, a direct
-    :meth:`launch_srois_batched` caller) is uploaded with its chunk.
-    ``frame_uploads`` counts the frames uploaded either way.
-
-    Everything runs on ``device`` (default ``cuda``; with no CUDA device
-    and no device given the constructor raises).  Float32 throughout:
-    the constructor turns TF32 off (``repro_torch.device.set_fp32_policy``).
-    Decoded rows come back to the host once per chunk; the
-    back-projection of a row's few boxes to SphBBs runs there, in
-    float32.
+    ``PodServer.step`` calls :meth:`stage_frames` with the tick's frames
+    before emission and :meth:`release_frames` when the tick ends;
+    :meth:`_device_frame` then serves a staged frame from its device
+    copy, and uploads any other frame anew on every call.
+    ``frame_uploads`` counts the frames uploaded either way.  The
+    subclass sets ``self.device`` and calls :meth:`_init_staging`.
     """
 
-    def __init__(self, variants_cfg, params_per_variant, conf: float = 0.25,
-                 max_det: int = 16, buckets=None,
-                 fused: bool = True, crop_cache_size: int = 256,
-                 device: str | torch.device | None = None):
-        from repro_torch.device import resolve_device, set_fp32_policy
-        from repro_torch.serving.batching import ShapeBuckets
+    device: torch.device
 
-        self.device = resolve_device(device)
-        set_fp32_policy()
-        self.cfgs = list(variants_cfg)
-        self.params = [_params_to(p, self.device) for p in params_per_variant]
-        self.conf = conf
-        self.max_det = max_det
-        self.buckets = buckets or ShapeBuckets(
-            resolutions=tuple(sorted({c.input_size for c in self.cfgs})))
-        self._shapes: set = set()
-        self.trace_count = 0  # distinct (variant, padded batch) shapes run
-        # fused tick: batched gnomonic projection (one launch per chunk
-        # instead of one `_project` per crop) + a cross-tick crop cache
-        # keyed on pitch-quantised region geometry.  `fused=False`
-        # restores the staged per-crop path.
-        self.fused = fused
-        self.crop_cache_size = crop_cache_size if fused else 0
-        # key -> (frame ref, guard, pi, ct, cp, fov)
-        self._crop_cache: dict = {}
-        self.crop_cache_hits = 0
-        self.crop_cache_misses = 0
+    def _init_staging(self) -> None:
         # the tick's staged frames: id(host frame) -> (host frame, the
         # (F, H, W, C) device stack holding it, its slot).  The host
         # frame is held for the tick, so its id cannot be reused.
@@ -520,6 +475,69 @@ class TorchDetectorBackend:
             return frame_img.to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.asarray(frame_img, dtype=np.float32),
                                device=self.device)
+
+
+class TorchDetectorBackend(FrameStaging):
+    """Real path: gnomonic projection (CUDA kernels) + the PyTorch
+    detector ladder; the port of the reference's ``JaxDetectorBackend``.
+
+    Exposes BOTH execution paths of the serving loop:
+
+      * :meth:`infer_sroi` — the per-request path (one forward per PI,
+        its projection through the gnomonic sampling kernel);
+      * :meth:`launch_srois_batched` — the tick path: one variant's
+        crops are projected together (the batched projection kernel,
+        behind a cross-tick crop cache), zero-padded up to a batch-size
+        bucket and pushed through ONE ``apply`` + masked ``decode``.
+        PyTorch runs eagerly, so there is no compile cache;
+        ``trace_count`` counts the distinct (variant, padded batch)
+        shapes a serving lifetime has run.
+
+    A tick's frames upload once (:meth:`stage_frames`, which
+    ``PodServer.step`` calls before emission): one asynchronous copy per
+    distinct frame from a pinned staging buffer, so the copies run
+    behind the host's planning, and every chunk of the tick reads them;
+    :meth:`release_frames` drops them when the tick ends.  A frame that
+    is not staged (a request carried across ticks, a direct
+    :meth:`launch_srois_batched` caller) is uploaded with its chunk.
+    ``frame_uploads`` counts the frames uploaded either way.
+
+    Everything runs on ``device`` (default ``cuda``; with no CUDA device
+    and no device given the constructor raises).  Float32 throughout:
+    the constructor turns TF32 off (``repro_torch.device.set_fp32_policy``).
+    Decoded rows come back to the host once per chunk; the
+    back-projection of a row's few boxes to SphBBs runs there, in
+    float32.
+    """
+
+    def __init__(self, variants_cfg, params_per_variant, conf: float = 0.25,
+                 max_det: int = 16, buckets=None,
+                 fused: bool = True, crop_cache_size: int = 256,
+                 device: str | torch.device | None = None):
+        from repro_torch.device import resolve_device, set_fp32_policy
+        from repro_torch.serving.batching import ShapeBuckets
+
+        self.device = resolve_device(device)
+        set_fp32_policy()
+        self.cfgs = list(variants_cfg)
+        self.params = [_params_to(p, self.device) for p in params_per_variant]
+        self.conf = conf
+        self.max_det = max_det
+        self.buckets = buckets or ShapeBuckets(
+            resolutions=tuple(sorted({c.input_size for c in self.cfgs})))
+        self._shapes: set = set()
+        self.trace_count = 0  # distinct (variant, padded batch) shapes run
+        # fused tick: batched gnomonic projection (one launch per chunk
+        # instead of one `_project` per crop) + a cross-tick crop cache
+        # keyed on pitch-quantised region geometry.  `fused=False`
+        # restores the staged per-crop path.
+        self.fused = fused
+        self.crop_cache_size = crop_cache_size if fused else 0
+        # key -> (frame ref, guard, pi, ct, cp, fov)
+        self._crop_cache: dict = {}
+        self.crop_cache_hits = 0
+        self.crop_cache_misses = 0
+        self._init_staging()
 
     def _project(self, frame_img, region: sroi_mod.SRoI, size: int):
         """SRoI -> (size, size, 3) PI on the device, through the gnomonic

@@ -512,3 +512,109 @@ def test_cuda_measure_host_profile(cuda):
     prof = measure_host_profile(reduced=True, repeats=2)
     assert list(prof) == [c.name for c in tdet.PAPER_LADDER[:3]]
     assert all(t > 0 and math.isfinite(t) for t in prof.values())
+
+
+# -- the action head on the card ------------------------------------------------
+
+
+def _action_items(frame, centers, fov=(1.1, 0.9)):
+    return [(frame, SRoI(center=c, fov=fov)) for c in centers]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", range(4))
+def test_cuda_action_backend_matches_cpu(cuda, rung):
+    """``TorchActionBackend`` on the card (the gnomonic sampling kernel)
+    against the same backend on the CPU with the plain projection, at
+    each ``ACTION_LADDER`` rung's published shape: a batch of 8 regions,
+    over enough frames to fill the longest window, logits within 1e-4,
+    equal categories; the kernel launched once a crop."""
+    from repro_torch.models import action as tact
+    from repro_torch.serving.tasks import (TorchActionBackend, action_ladder,
+                                           default_action_configs)
+
+    cfgs = default_action_configs()
+    params = [tact.init_params(torch.Generator().manual_seed(50 + i), c)
+              for i, c in enumerate(cfgs)]
+    card = TorchActionBackend(cfgs, params)
+    host = TorchActionBackend(cfgs, params, use_kernel=False, device="cpu")
+    variant = action_ladder()[rung]
+    cfg = cfgs[rung]
+    centers = [(-2.8 + 0.7 * k, 0.5 * math.sin(k)) for k in range(8)]
+    rng = np.random.default_rng(rung)
+    _build.reset_launch_counts()
+    for f in range(cfg.clip_len + 1):
+        frame = rng.random((480, 960, 3)).astype(np.float32)
+        card.set_frame(f)
+        host.set_frame(f)
+        got = card.infer_srois_batched(_action_items(frame, centers), variant)
+        want = host.infer_srois_batched(_action_items(frame, centers),
+                                        variant)
+        assert [d[0].category for d in got] == [d[0].category for d in want]
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a[0].score, b[0].score, atol=1e-4)
+    assert _build.launch_counts().get("gnomonic_sample") == \
+        len(centers) * (cfg.clip_len + 1)
+    keys = sorted(card._clips)
+    assert keys == sorted(host._clips)
+    clips = torch.stack([torch.stack(card._clips[k]) for k in keys])
+    assert clips.is_cuda and clips.shape[1] == cfg.clip_len
+    logits = tact.apply(card.params[rung], clips, cfg).cpu()
+    ref = tact.apply(host.params[rung],
+                     torch.stack([torch.stack(host._clips[k]) for k in keys]),
+                     cfg)
+    np.testing.assert_allclose(logits.numpy(), ref.numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_pod_step_uploads_each_frame_once(cuda):
+    """A mixed detection + action pod through ``PodServer.step`` on the
+    card: each stream's frame uploads once a tick (the detector's two
+    streams to the detector backend, the action head's two to the action
+    backend), no staged frame outlives its tick, the action path
+    launches the gnomonic sampling kernel, and both tasks finish frames
+    with finite results."""
+    from repro_torch.models import action as tact
+    from repro_torch.serving.server import PodServer
+    from repro_torch.serving.tasks import (TorchActionBackend,
+                                           build_task_streams,
+                                           default_action_configs,
+                                           shape_buckets_for,
+                                           stream_tasks_for)
+
+    tasks = stream_tasks_for("mixed", 4)
+    videos = [make_video(n_frames=8, n_objects=20, seed=s)
+              for s in (31, 32, 33, 34)]
+    variants, loops, _, _ = build_task_streams(tasks, videos, [2.0] * 4)
+    buckets = shape_buckets_for(tasks, 8)
+    det_cfgs = [dataclasses.replace(c, width_mult=0.25, depth_mult=0.34)
+                for c in tdet.PAPER_LADDER]
+    det = TorchDetectorBackend(
+        det_cfgs, [tdet.init_params(torch.Generator().manual_seed(i), c)
+                   for i, c in enumerate(det_cfgs)],
+        conf=0.01, max_det=8, buckets=buckets)
+    act_cfgs = default_action_configs()
+    act = TorchActionBackend(
+        act_cfgs, [tact.init_params(torch.Generator().manual_seed(9 + i), c)
+                   for i, c in enumerate(act_cfgs)], buckets=buckets)
+    backends = [det if t == "detection" else act for t in tasks]
+    for loop, backend, video in zip(loops, backends, videos):
+        loop.backend = backend
+        loop.seed_history(video.visible_objects(0))
+    frames = {(s, f): render_erp(videos[s], f, height=480, width=960)
+              for s in range(4) for f in (1, 2, 3)}
+    server = PodServer(loops, backends, max_batch=8, buckets=buckets,
+                       frame_source=lambda s, f: frames[(s, f)])
+    _build.reset_launch_counts()
+    for f in (1, 2, 3):
+        server.step(f)
+        assert det.frame_uploads == 2 * f
+        assert act.frame_uploads == 2 * f
+        assert not det._staged and not act._staged
+    assert _build.launch_counts().get("gnomonic_sample", 0) > 0
+    assert server.stats.frames_by_task == {"detection": 6,
+                                           "action_recognition": 6}
+    for loop in loops:
+        for d in loop._history[-1]:
+            assert np.isfinite(d.box).all() and math.isfinite(d.score)
+    assert any(loop._history[-1] for loop in loops[1::2])

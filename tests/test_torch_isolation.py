@@ -43,7 +43,9 @@ def test_every_module_imports_without_jax_or_reference():
     for m in ("serving.server", "serving.runtime", "serving.telemetry",
               "serving.pod_allocation", "serving.placement",
               "serving.traffic", "serving.batching", "serving.baselines",
-              "launch.serve"):
+              "launch.serve", "launch.replay", "serving.tasks",
+              "serving.fleet", "serving.replay", "distributed.elastic",
+              "models.vision", "models.action"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -80,6 +82,15 @@ def test_no_device_means_cuda_or_raise():
     with pytest.raises(RuntimeError, match="CUDA"):
         gnomonic_sample(erp, uv, uv)
     # asked for explicitly, the CPU runs the plain versions
+    from repro_torch.models import action as act_mod
+    from repro_torch.serving.tasks import TorchActionBackend
+
+    acfg = act_mod.ActionConfig("a", 16, 2, patch=8, d_model=8, d_ff=16)
+    aparams = act_mod.init_params(torch.Generator().manual_seed(0), acfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchActionBackend([acfg], [aparams])
+    assert TorchActionBackend([acfg], [aparams],
+                              device="cpu").device.type == "cpu"
     backend = TorchDetectorBackend([cfg], [params], device="cpu")
     assert backend.device.type == "cpu"
     assert gnomonic_sample(erp, uv, uv, device="cpu").shape == (4, 4, 3)

@@ -443,15 +443,50 @@ def test_serve_launcher_matches_reference(args, tmp_path, capsys,
     assert any(e["event"] == "frame_finish" for e in t_events)
 
 
-@pytest.mark.parametrize("args,slice_name", [
-    (["--open-loop", "--pods", "2"], "slice D"),
-    (["--tasks", "action"], "slice E"),
-    (["--tasks", "mixed"], "slice E")])
-def test_serve_launcher_names_the_slice_it_needs(args, slice_name, tmp_path):
+@pytest.mark.parametrize("args", [
+    ["--open-loop", "--pods", "2"],
+    ["--tasks", "action"],
+    ["--tasks", "mixed"],
+    ["--open-loop", "--pods", "2", "--tasks", "mixed", "--routing",
+     "affinity", "--devices", "8", "--admission", "slo"],
+    ["--tasks", "mixed", "--policy", "async", "--pod-allocate", "--devices",
+     "4"]],
+    ids=["pods", "tasks-action", "tasks-mixed", "pods-mixed-affinity",
+         "mixed-async-pod-allocate"])
+def test_serve_launcher_fleet_and_tasks_match_reference(args, tmp_path,
+                                                        capsys, monkeypatch):
+    """``--pods`` (the fleet tier) and ``--tasks action|mixed`` (the task
+    registry) print the reference launcher's lines and write its event
+    records on the same seed."""
+    import sys
+
+    from repro.launch import serve as j_serve
     from repro_torch.launch import serve as t_serve
 
-    events = tmp_path / "events.jsonl"
-    with pytest.raises(SystemExit, match=slice_name):
-        t_serve.main(["--streams", "2", "--frames", "2",
-                      "--events", str(events)] + args)
-    assert not events.exists()
+    argv = ["--streams", "4", "--frames", "6"] + args
+
+    def run(main, name, pass_argv):
+        path = tmp_path / f"{name}.jsonl"
+        full = argv + ["--events", str(path)]
+        monkeypatch.setattr(sys, "argv", ["serve"] + full)
+        capsys.readouterr()
+        main(full) if pass_argv else main()
+        lines = [line for line in capsys.readouterr().out.splitlines()
+                 if "control-plane overhead" not in line
+                 and not line.startswith("telemetry event log")]
+        return lines, t_tel.read_events(path)
+
+    j_lines, j_events = run(j_serve.main, "j", False)
+    t_lines, t_events = run(t_serve.main, "t", True)
+    assert t_lines == j_lines
+    assert t_events == j_events
+    if "--pods" in args:
+        assert t_lines[0].startswith("fleet [")
+        assert any(e["event"] == "route" for e in t_events)
+    else:
+        assert t_lines[0].startswith("served ")
+    if "mixed" in args:
+        assert any(line.startswith("per-task") for line in t_lines) \
+            or "--pods" in args
+        assert {e.get("task") for e in t_events if e["event"] == "emit"} \
+            == {"detection", "action_recognition"}
