@@ -31,11 +31,13 @@ Phases, in order; any failure exits non-zero:
    and bf16 at their head sizes, the tensor-core kernel in bf16 at D=64
    and D=128), at smollm-135m's 4x2048 shape (float32 on the SIMT
    kernel, bf16 on both), at the float32 policy's 1x2048 (the SIMT
-   kernel's path shape, timed beside SDPA in float32) and at 32k (the
-   tensor-core kernel against the
-   SIMT one), each with a control that drops one K/V tile and must fail;
-   then the tensor-core kernel, the SIMT kernel, SDPA and the plain
-   version are timed in turn.  The bf16 SphIoU option is also checked
+   kernel's path shape, timed beside SDPA in float32), at 32k (the
+   tensor-core kernel against the SIMT one), and, at D=128, at
+   mixtral-8x22b's prefill layout (2x8192, 48/8 heads, window 4096) and
+   granite-34b's MQA layout (1x4096, 48/1 heads), each with a control
+   that drops one K/V tile and must fail; then the tensor-core kernel,
+   the SIMT kernel, SDPA (with a boolean band mask for a window) and the
+   plain version are timed in turn.  The bf16 SphIoU option is also checked
    against the float32 kernel's keep masks (the reference's flip gate);
 4. a small input through the per-request path on the card and on the
    CPU: the same SRoIs and plans, PIs, detector heads and detection
@@ -98,7 +100,22 @@ Phases, in order; any failure exits non-zero:
    the path and read after it.  Then the same model under the float32
    policy (the reference's float32 path) prefills 1 x 2048 tokens, which
    runs the SIMT kernel 30 times, counted on its own and held to the
-   chunked plain version's logits.
+   chunked plain version's logits;
+8. the MoE LM serving path at published widths (``MOE_RUNS``; its cuts
+   are in ``run_moe_path``): mixtral-8x22b (8 of 56 layers, 8 experts
+   top-2, window 4096) prefills 2 prompts of 8192 tokens and decodes 32
+   greedy tokens; qwen3-moe-235b-a22b (2 of 94 layers, 128 experts
+   top-8) prefills 1 x 4096.  Prefill ms per request, decode ms per
+   token, the generated tokens' digest, the picks each layer dropped in
+   prefill and in decode, and the launches are printed (the tensor-core
+   kernel once a layer of each prefill, the SIMT kernel never); logits
+   must be finite, each layer's attention within one bf16 ulp and
+   ``ATTN_BF16_ATOL`` of the chunked plain version (the control drops a
+   tile inside the window of the last rows), and layer 0's MoE block
+   within its bf16 roundings (``MOE_U``) of a per-token float32
+   formulation, which a control with one kept pick zeroed must fail.
+   The logits against the chunked step are held to ``LM_LOGIT_ATOL``
+   where every layer routed alike.
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -109,12 +126,14 @@ the gnomonic sampler, the batched projection, SphIoU and the greedy
 suppression), for the same use; it prints no result line either.
 
 ``--profile`` also profiles the last pod tick, the last mixed tick, one
-LM prefill step and four decode steps: the card's busy share of each, its host-to-device
-copies, its top kernels and the frame loop's kernels among them.
+LM prefill step and four decode steps of smollm-135m and of mixtral-8x22b:
+the card's busy share of each, its host-to-device copies, its top kernels
+and the frame loop's kernels among them.
 
 The last lines are the kernels' JSON record (with each kernel's launches
 by path: the frame loop of phase 5, the mixed pod of phase 6, the LM of
-phase 7), the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+phase 7, the MoE LM of phase 8), the ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
 """
 
@@ -208,8 +227,9 @@ KERNELS = {
 PORT_KERNEL_FUNCTIONS = ("gnomonic_sample_kernel", "project_srois_kernel",
                          "sphiou_self_kernel", "sphiou_cross_kernel",
                          "greedy_")
-# the kernels the LM serving path runs (bf16 on the tensor-core kernel,
-# the float32 policy on the SIMT one); the frame loop runs the others
+# the kernels the LM serving paths run, dense and MoE (bf16 on the
+# tensor-core kernel, the float32 policy on the SIMT one); the frame loop
+# runs the others
 LM_KERNELS = ("flash_attention", "flash_attention_wgmma")
 
 
@@ -653,23 +673,47 @@ FLASH_CASES = [  # the reference's (tests/test_kernels.py)
 ]
 
 
-def sdpa_call(q, k, v):
+def sdpa_call(q, k, v, window: int | None = None):
     """One PyTorch call computing causal GQA attention on (B, S, H, D)
-    tensors: the library yardstick, timed only."""
+    tensors: the library yardstick, timed only.  With a window, a boolean
+    ``attn_mask`` of the causal band (SDPA takes no window of its own), on
+    the fused backends only: the math backend would materialise the
+    scores."""
+    import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    i = torch.arange(q.shape[1], device=q.device)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
                                                   enable_gqa=True)
+    return call
+
+
+def flash_pairs(s: int, window: int | None = None) -> int:
+    """The (query, key) pairs of causal attention over ``s`` tokens that a
+    ``window`` (None: none) leaves in: query q sees min(q + 1, window)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
 
 
 def flash_bound(b: int, s: int, hq: int, hkv: int, d: int,
-                float32: bool = False) -> tuple[float, str]:
+                float32: bool = False, window: int | None = None
+                ) -> tuple[float, str]:
     """Causal attention's least time: 4*D operations a (query, key) pair
-    at the bf16 tensor-core rate, against q, k, v and the output moved
-    once in bf16; for float32, 4-byte elements and the float32 rate
-    outside the tensor cores (TF32 would round the inputs)."""
-    pairs = b * hq * s * (s + 1) // 2
+    in the window at the bf16 tensor-core rate, against q, k, v and the
+    output moved once in bf16; for float32, 4-byte elements and the
+    float32 rate outside the tensor cores (TF32 would round the inputs)."""
+    pairs = b * hq * flash_pairs(s, window)
     elem = 4 if float32 else 2
     n_bytes = elem * d * b * s * (2 * hq + 2 * hkv)
     return bound_ms(n_bytes, 4 * d * pairs,
@@ -683,13 +727,14 @@ def attn_excess(got, ref) -> float:
     return float(((g - r).abs() - ATTN_BF16_RTOL * r.abs()).max())
 
 
-def attention_dropping_tile(q, k, v, lo: int, *, causal: bool = True,
-                            window: int | None = None, q_offset: int = 0,
-                            rows: int = 2048):
-    """The control: GQA attention in float32, as the plain version
-    computes it, but blind to keys lo..lo+ATTN_DROPPED_TILE-1, as a kernel
-    that skipped that K/V tile would be; by blocks of ``rows`` queries, so
-    the scores of a 32k sequence fit.  Output in q's dtype."""
+def attention_rows(q, k, v, *, drop: int | None = None, causal: bool = True,
+                   window: int | None = None, q_offset: int = 0,
+                   rows: int = 2048):
+    """GQA attention in float32, as the plain version computes it, by
+    blocks of ``rows`` queries, so the scores of a long sequence fit.
+    With ``drop``, the control: blind to keys drop..drop+ATTN_DROPPED_TILE-1,
+    as a kernel that skipped that K/V tile would be.  Output in q's
+    dtype."""
     import torch
 
     b, s, hq, d = q.shape
@@ -697,7 +742,8 @@ def attention_dropping_tile(q, k, v, lo: int, *, causal: bool = True,
     kf = k.float().repeat_interleave(rep, dim=2)
     vf = v.float().repeat_interleave(rep, dim=2)
     kpos = torch.arange(k.shape[1], device=q.device)
-    seen = (kpos < lo) | (kpos >= lo + ATTN_DROPPED_TILE)
+    seen = torch.ones_like(kpos, dtype=torch.bool) if drop is None else \
+        (kpos < drop) | (kpos >= drop + ATTN_DROPPED_TILE)
     out = torch.empty_like(q)
     for r0 in range(0, s, rows):
         qb = q[:, r0:r0 + rows].float()
@@ -709,9 +755,10 @@ def attention_dropping_tile(q, k, v, lo: int, *, causal: bool = True,
             mask = mask & (kpos[None, :] > qpos[:, None] - window)
         sc = torch.einsum("bqhd,bkhd->bhqk", qb, kf) * d ** -0.5
         p = torch.softmax(sc.masked_fill(~mask, -1e30), dim=-1) * mask
+        del sc
         out[:, r0:r0 + rows] = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(
             q.dtype)
-        del sc, p
+        del p
     return out
 
 
@@ -763,7 +810,7 @@ def check_flash(records: dict) -> None:
                       q_offset=c["skv"] - c["sq"] if c["causal"] else 0)
             got = ops.launch(kernel, q, k, v, **kw)
             ref = flash_attention_ref(q, k, v, **kw)
-            ctl = attention_dropping_tile(q, k, v, c["skv"] // 2, **kw)
+            ctl = attention_rows(q, k, v, drop=c["skv"] // 2, **kw)
             err = float((got.float() - ref.float()).abs().max())
             worst = max(worst, err)
             what = f"{ops.KERNELS[kernel].name} {dtype} case {c} at D={d}"
@@ -795,7 +842,7 @@ def check_flash(records: dict) -> None:
     err32 = float((got - ref).abs().max())
     check(bool(torch.allclose(got, ref, atol=2e-5, rtol=1e-4)),
           f"flash_attention smollm shape float32: max |err| {err32}")
-    ctl = attention_dropping_tile(q, k, v, s // 2)
+    ctl = attention_rows(q, k, v, drop=s // 2)
     ctl_err = float((ctl - ref).abs().max())
     check(not torch.allclose(ctl, ref, atol=2e-5, rtol=1e-4),
           "flash_attention smollm shape float32: the control passes")
@@ -832,7 +879,7 @@ def check_flash(records: dict) -> None:
 
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     ref = flash_attention_ref(q, k, v, causal=True)
-    ctl = attention_dropping_tile(q, k, v, s // 2)
+    ctl = attention_rows(q, k, v, drop=s // 2)
     lib = sdpa_call(q, k, v)
     lib_out = lib().transpose(1, 2).float()
     shape = f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal"
@@ -874,7 +921,7 @@ def check_flash(records: dict) -> None:
     simt = ops.launch("simt", q, k, v, causal=True)
     lib_err = float((got.float() - lib().transpose(1, 2).float()).abs().max())
     readings = check_attn_bf16(got, simt,
-                               attention_dropping_tile(q, k, v, s // 2),
+                               attention_rows(q, k, v, drop=s // 2),
                                f"flash_attention_wgmma S={s} against SIMT")
     del simt
     print(f"kernel flash_attention_wgmma B=1 S={s} Hq={hq} Hkv={hkv} D={d} "
@@ -890,6 +937,62 @@ def check_flash(records: dict) -> None:
     b_ms, b_by = flash_bound(1, s, hq, hkv, d)
     print_flash_times(f"B=1 S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal",
                       times, lib_ms, b_ms, b_by, None, again)
+    del q, k, v, lib, got
+    for layout in FLASH_D128_LAYOUTS:
+        check_flash_layout(qkv, *layout)
+
+
+# the tensor-core kernel at D=128 on the MoE path's layouts (phase 8):
+# mixtral-8x22b's prefill (2 x 8192 tokens, a group of 6, a 4096-token
+# window: the window's edge and the skip of tiles behind it) and
+# granite-34b's MQA (48 query heads on one KV head)
+FLASH_D128_LAYOUTS = [
+    ("mixtral-8x22b", 2, 8192, 48, 8, 128, 4096),
+    ("granite-34b", 1, 4096, 48, 1, 128, None),
+]
+
+
+def check_flash_layout(qkv, name: str, b: int, s: int, hq: int, hkv: int,
+                       d: int, window: int | None) -> None:
+    """The tensor-core kernel at one layout, bf16: held to the plain
+    version (by blocks of query rows: at B=2 and S=8192 its scores would
+    take 25.8 GB) with the control, which drops a tile inside the window
+    of the last rows; then the kernel, SDPA and the plain version at B=1
+    timed in turn, and the kernel again."""
+    import torch
+
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+
+    q, k, v = qkv(b, s, s, hq, hkv, d, torch.bfloat16)
+    kw = dict(causal=True, window=window)
+    got = ops.launch("wgmma", q, k, v, **kw)
+    ref = attention_rows(q, k, v, **kw)
+    err = float((got.float() - ref.float()).abs().max())
+    readings = check_attn_bf16(
+        got, ref, attention_rows(q, k, v, drop=s - (window or s) // 2, **kw),
+        f"flash_attention_wgmma at {name}'s layout")
+    del ref
+    lib = sdpa_call(q, k, v, window)
+    lib_err = float((got.float() - lib().transpose(1, 2).float()).abs().max())
+    win = f"window {window}" if window else "no window"
+    shape = f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal, {win}"
+    print(f"kernel flash_attention_wgmma {shape} ({name}): max|err| "
+          f"{err:.3g}, {readings}; against SDPA {lib_err:.3g}")
+    ms = time_ms(lambda: ops.launch("wgmma", q, k, v, **kw), reps=10)
+    lib_ms = time_ms(lib, reps=10)
+    q1, k1, v1 = q[:1], k[:1], v[:1]
+    plain_ms = time_ms(lambda: flash_attention_ref(q1, k1, v1, **kw),
+                       reps=2, warmup=1)
+    again = time_ms(lambda: ops.launch("wgmma", q, k, v, **kw), reps=10)
+    b_ms, b_by = flash_bound(b, s, hq, hkv, d, window=window)
+    print(f"flash times {shape} ({name}): tensor-core kernel {ms:.4f} ms "
+          f"(again {again:.4f}), SDPA {lib_ms:.4f} "
+          f"({'a boolean band mask' if window else 'is_causal'}), plain "
+          f"{plain_ms:.4f} at B=1, bound {b_ms:.5f} ({b_by}; "
+          f"{b * hq * flash_pairs(s, window) / 1e9:.3f} G pairs); "
+          f"tensor-core / SDPA {ms / lib_ms:.2f}x, tensor-core / bound "
+          f"{ms / b_ms:.1f}x")
 
 
 def print_flash_times(shape: str, times: dict, lib_ms: float, b_ms: float,
@@ -1552,32 +1655,7 @@ def run_lm_path(profile: bool = False) -> dict:
           f"max|err| {err:.3g} (tol {LM_LOGIT_ATOL}), next-token agreement "
           f"{agree:.2f}")
     check(err <= LM_LOGIT_ATOL, f"LM logits against chunked: {err}")
-    # each layer's attention on the model's own activations, the chunked
-    # step's, against the chunked plain version, and the control at layer 0
-    worst, worst_at = -1.0, 0
-    with torch.no_grad():
-        x = L.embedding(params["embed"], tokens, cfg.policy)
-        positions = torch.arange(s, device=dev)
-        for i in range(cfg.n_layers):
-            lp = T._layer_params(params, i)
-            q, k, v = T._qkv(lp, x, cfg, positions)
-            a_ref = T.attention(q, k, v, chunked, causal=True)
-            a_flash = T.attention(q, k, v, cfg, causal=True)
-            if i == 0:
-                readings = check_attn_bf16(
-                    a_flash, a_ref, attention_dropping_tile(q, k, v, s // 2),
-                    f"LM prefill B={b} S={s} layer 0 attention")
-            ex = attn_excess(a_flash, a_ref)
-            if ex > worst:
-                worst, worst_at = ex, i
-            x = T._finish_block(lp, x, a_ref, cfg)
-    print(f"LM prefill B={b} S={s} attention of each of {cfg.n_layers} "
-          f"layers against the chunked plain version: |err| - 2^-7 |ref| at "
-          f"most {worst:.3g}, at layer {worst_at} (limit {ATTN_BF16_ATOL}); "
-          f"layer 0: {readings}")
-    check(worst <= ATTN_BF16_ATOL,
-          f"LM prefill attention of layer {worst_at} against chunked: "
-          f"|err| exceeds 2^-7 |ref| by {worst}")
+    check_each_layer(params, cfg, tokens, "LM")
     with torch.no_grad():
         lp = T._layer_params(params, 0)
         x = L.embedding(params["embed"], long_tokens, cfg.policy)
@@ -1586,7 +1664,7 @@ def run_lm_path(profile: bool = False) -> dict:
         a_ref = T.attention(q, k, v, chunked, causal=True)
         err0 = float((a_flash.float() - a_ref.float()).abs().max())
         readings = check_attn_bf16(
-            a_flash, a_ref, attention_dropping_tile(q, k, v, s_long // 2),
+            a_flash, a_ref, attention_rows(q, k, v, drop=s_long // 2),
             f"LM prefill S={s_long} layer 0 attention")
     print(f"LM prefill S={s_long} layer-0 attention against the chunked "
           f"plain version: max|err| {err0:.3g}, {readings}")
@@ -1595,6 +1673,55 @@ def run_lm_path(profile: bool = False) -> dict:
     del params, long_out, out, ref
     launches.update(run_lm_float32(cfg, tokens[:1]))
     return {k: launches.get(k, 0) for k in LM_KERNELS}
+
+
+def check_each_layer(params, cfg, tokens, what: str, rows: int = 2048,
+                     at_layer0=None):
+    """Each layer's attention (``attention_impl="flash"``) on the chunked
+    step's own activations against the chunked plain version, within one
+    bf16 ulp and ATTN_BF16_ATOL, with the control at layer 0: a K/V tile
+    dropped inside the window of the last rows (``rows`` query rows a
+    block).  ``at_layer0(lp, x, attn_out, cfg)``, if given, also runs at
+    layer 0; its result is returned."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    chunked = dataclasses.replace(cfg, attention_impl="chunked")
+    kw = dict(causal=True, window=cfg.window)
+    worst, worst_at, extra = -1.0, 0, None
+    with torch.no_grad():
+        x = L.embedding(params["embed"], tokens, cfg.policy)
+        positions = torch.arange(s, device=tokens.device)
+        for i in range(cfg.n_layers):
+            lp = T._layer_params(params, i)
+            q, k, v = T._qkv(lp, x, cfg, positions)
+            a_ref = T.attention(q, k, v, chunked, **kw)
+            a_flash = T.attention(q, k, v, cfg, **kw)
+            if i == 0:
+                drop = s - (cfg.window or s) // 2
+                readings = check_attn_bf16(
+                    a_flash, a_ref,
+                    attention_rows(q, k, v, drop=drop, rows=rows, **kw),
+                    f"{what} prefill B={b} S={s} layer 0 attention")
+                if at_layer0 is not None:
+                    extra = at_layer0(lp, x, a_flash, cfg)
+            ex = attn_excess(a_flash, a_ref)
+            if ex > worst:
+                worst, worst_at = ex, i
+            x, _ = T._finish_block(lp, x, a_ref, chunked)
+    print(f"{what} prefill B={b} S={s} attention of each of {cfg.n_layers} "
+          f"layers against the chunked plain version: |err| - 2^-7 |ref| at "
+          f"most {worst:.3g}, at layer {worst_at} (limit {ATTN_BF16_ATOL}); "
+          f"layer 0: {readings}")
+    check(worst <= ATTN_BF16_ATOL,
+          f"{what} prefill attention of layer {worst_at} against chunked: "
+          f"|err| exceeds 2^-7 |ref| by {worst}")
+    return extra
 
 
 def run_lm_float32(cfg, tokens) -> dict:
@@ -1637,6 +1764,256 @@ def run_lm_float32(cfg, tokens) -> dict:
           f"the float32 LM prefill launched {launches}, not "
           f"{cfg.n_layers} of the SIMT flash_attention")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 8: the MoE LM serving path
+# --------------------------------------------------------------------------
+
+# phase 8's runs: (config module, layers kept of the published depth,
+# batch, prompt tokens, greedy decode steps)
+MOE_RUNS = (("mixtral_8x22b", 8, 2, 8192, 32),
+            ("qwen3_moe_235b_a22b", 2, 1, 4096, 0))
+# layer 0's MoE block against the per-token float32 formulation over the
+# prompt's first MOE_CHECK_TOKENS tokens.  The formulation rounds the
+# SwiGLU's hidden to bf16 where the reference's function does
+# (``hidden.astype(cdt)``) and keeps the rest in float32; the block also
+# rounds each pick's expert output, its gate and the gated product, and
+# each of the k - 1 additions, by at most MOE_U relatively each (bf16's
+# unit roundoff).  Hence |got - ref| <= MOE_U ((k + 2) sum_j |c_j| +
+# rms(ref)) per element, c_j the picks' float32 contributions (the rms
+# term covers the float32 sums' order); a control with one kept pick
+# zeroed must fail it
+MOE_U = 2.0 ** -8
+MOE_CHECK_TOKENS = 1024
+
+
+def check_moe_block(lp, x, attn_out, cfg) -> str:
+    """Layer 0's MoE block on the card (``moe_block``: the dispatch, the
+    grouped products, the combine) against a per-token float32
+    formulation on the card, from the same bf16 input and weights: for
+    each kept (token, expert) pick of the block's routing, the gate times
+    that expert's SwiGLU of the token; a dropped pick gives 0.  Returns
+    the readings, for the printed line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    b, s, d = x.shape
+    moe = lp["moe"]
+    xa = x + L.dense({"w": lp["attn"]["wo"]},
+                     attn_out.reshape(b, s, cfg.n_heads * cfg.d_head),
+                     cfg.policy)
+    h2 = L.rmsnorm(lp["ln2"], xa, cfg.norm_eps).reshape(b * s, d)
+    routes = []
+    got = T.moe_block(moe, h2, cfg, routes)[0][:MOE_CHECK_TOKENS].float()
+    n = got.shape[0]
+    ids, keep = routes[0].expert_ids[:n], routes[0].keep[:n]
+    probs = torch.softmax(L.dense({"w": moe["router"]}, h2[:n],
+                                  cfg.policy).float(), dim=-1)
+    gates = probs.gather(1, ids)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    h = h2[:n].float()
+
+    def swiglu(e, tok):
+        wg, wu, wd = (moe[w][e].float() for w in ("w_gate", "w_up", "w_down"))
+        hid = (F.silu(h[tok] @ wg) * (h[tok] @ wu)).to(cfg.compute_dtype)
+        return hid.float() @ wd
+
+    ref = torch.zeros((n, d), device=x.device)
+    mag = torch.zeros((n, d), device=x.device)  # sum_j |c_j|
+    for e in range(cfg.n_experts):
+        tok, j = ((ids == e) & keep).nonzero(as_tuple=True)
+        if len(tok):
+            c = gates[tok, j, None] * swiglu(e, tok)
+            ref.index_add_(0, tok, c)
+            mag.index_add_(0, tok, c.abs())
+    bound = MOE_U * ((cfg.moe_top_k + 2) * mag + ref.pow(2).mean().sqrt())
+
+    def excess(want):
+        return float(((got - want).abs() / bound).max())
+
+    ex = excess(ref)
+    # the control: the kept pick with the largest gate zeroed
+    tok, j = divmod(int(torch.where(keep, gates, -1.0).argmax()), ids.shape[1])
+    ctl = ref.clone()
+    ctl[tok] -= gates[tok, j] * swiglu(int(ids[tok, j]), [tok])[0]
+    ex_ctl = excess(ctl)
+    what = f"{cfg.name} layer-0 MoE block over {n} tokens"
+    check(ex <= 1.0, f"{what}: |err| exceeds its bound {ex} times")
+    check(ex_ctl > 1.0, f"{what}: the control with a kept pick zeroed "
+          f"passes ({ex_ctl} <= 1)")
+    return (f"max |err| / (2^-8 ((k + 2) sum_j |c_j| + rms(ref))) {ex:.3g} "
+            f"(limit 1; the control with the pick of token {tok}, gate "
+            f"{float(gates[tok, j]):.3f}, zeroed {ex_ctl:.3g}, fails); "
+            f"{int(keep.sum())} kept picks, {int((~keep).sum())} dropped")
+
+
+def routes_by_layer(routes: list, n_layers: int) -> list[list]:
+    """The :class:`Routing` records of successive calls, by layer."""
+    return [routes[i::n_layers] for i in range(n_layers)]
+
+
+def serve_moe(cfg, b: int, s: int, n_dec: int, full_layers: int,
+              profile: bool) -> dict:
+    """One MoE model through ``lm_prefill_step`` (and ``n_dec`` greedy
+    ``lm_decode_step``s), launches counted from 0 before and read after;
+    then the comparisons; returns the launches."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    from repro_torch.training.steps import lm_decode_step, lm_prefill_step
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(21), cfg,
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    gbytes = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    print(f"MoE path: {cfg.name}, {cfg.n_layers} of its {full_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.d_head}, {cfg.n_experts} experts top-"
+          f"{cfg.moe_top_k}, d_ff_expert {cfg.d_ff_expert}, window "
+          f"{cfg.window}, vocab {cfg.vocab_size}: {n_params / 1e9:.2f}B bf16 "
+          f"parameters ({gbytes:.1f} GB; random, seeded), "
+          f"attention_impl=flash, init {time.perf_counter() - t0:.1f}s")
+    tok_gen = torch.Generator(device=dev).manual_seed(22)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=tok_gen,
+                           device=dev)
+    routes_p, routes_d = [], []
+    prefill = lm_prefill_step(cfg, s + n_dec, routes_p)
+    decode = lm_decode_step(cfg, routes_d)
+    prefill(params, {"tokens": tokens[:, :256]})  # warm-up: handles, library
+    torch.cuda.synchronize()
+    routes_p.clear()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    out = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    logits = out["logits"].clone()
+    finite = torch.isfinite(logits).all()
+    token = logits.argmax(-1)
+    generated = []
+    t = time.perf_counter()
+    for _ in range(n_dec):
+        generated.append(token)
+        out = decode(params, {"token": token, "cache_k": out["k"],
+                              "cache_v": out["v"], "cache_len": out["length"]})
+        finite &= torch.isfinite(out["logits"]).all()
+        token = out["logits"].argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / max(n_dec, 1)
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(finite), f"the {cfg.name} MoE path gave non-finite logits")
+    check(int(out["length"]) == s + n_dec, f"{cfg.name}: cache length")
+    print(f"MoE {cfg.name} prefill B={b} S={s}: {prefill_ms:.1f} ms for the "
+          f"step, prefill ms per request {prefill_ms / b:.1f}; peak device "
+          f"memory {peak_gb:.1f} GB")
+    drops = [int(sum((~r.keep).sum() for r in rs))
+             for rs in routes_by_layer(routes_p, cfg.n_layers)]
+    print(f"MoE {cfg.name} prefill tokens dropped per layer (of {b * s} x "
+          f"{cfg.moe_top_k} picks, capacity {T.moe_capacity(cfg, b * s)} an "
+          f"expert): {drops}")
+    if n_dec:
+        gen = torch.stack(generated, 1)
+        digest = hashlib.sha256(gen.cpu().numpy().astype("int64").tobytes()
+                                ).hexdigest()[:16]
+        drops = [int(sum((~r.keep).sum() for r in rs))
+                 for rs in routes_by_layer(routes_d, cfg.n_layers)]
+        print(f"MoE {cfg.name} decode B={b}, {n_dec} greedy steps after the "
+              f"{s}-token prompt (positions {s}..{s + n_dec - 1}, ring slots "
+              f"pos % {out['k'].shape[2]}): decode ms per token "
+              f"{decode_ms:.2f}")
+        print(f"MoE {cfg.name} generated tokens (B={b} x {n_dec}) sha256 "
+              f"{digest}; first row {gen[0, :8].tolist()}")
+        print(f"MoE {cfg.name} decode tokens dropped per layer over {n_dec} "
+              f"steps (of {b} x {cfg.moe_top_k} picks a step, capacity "
+              f"{T.moe_capacity(cfg, b)} an expert): {drops}")
+    print(f"MoE {cfg.name} launches: {launches} over one prefill call of "
+          f"{cfg.n_layers} layers (decode attends with plain einsums)")
+
+    # comparisons, after the counts are read: the same step under the
+    # chunked plain version, with its routing
+    chunked = dataclasses.replace(cfg, attention_impl="chunked")
+    routes_c = []
+    ref = lm_prefill_step(chunked, s + n_dec, routes_c)(params,
+                                                        {"tokens": tokens})
+    err = float((logits - ref["logits"]).abs().max())
+    agree = float((logits.argmax(-1) == ref["logits"].argmax(-1)).float()
+                  .mean())
+    moved = [int(((a.expert_ids != c.expert_ids) | (a.keep != c.keep))
+                 .any(dim=1).sum()) for a, c in zip(routes_p, routes_c)]
+    line = (f"MoE {cfg.name} prefill logits against attention_impl=chunked: "
+            f"max|err| {err:.3g}, next-token agreement {agree:.2f}")
+    if any(moved):
+        print(f"{line}; not held to {LM_LOGIT_ATOL}: tokens whose experts or "
+              f"drops differ, by layer: {moved}")
+    else:
+        print(f"{line} (tol {LM_LOGIT_ATOL}; every layer's experts and drops "
+              f"agree)")
+        check(err <= LM_LOGIT_ATOL, f"{cfg.name} logits against chunked: "
+              f"{err}")
+    del ref, routes_c
+    moe_readings = check_each_layer(params, cfg, tokens, f"MoE {cfg.name}",
+                                    rows=512, at_layer0=check_moe_block)
+    print(f"MoE {cfg.name} layer-0 MoE block against the per-token float32 "
+          f"formulation: {moe_readings}")
+    if profile and n_dec:
+        profile_lm(prefill, decode, params, tokens)
+    return launches
+
+
+def run_moe_path(profile: bool = False) -> dict:
+    """Phase 8: the MoE models at published widths, depth cut to fit one
+    card (``MOE_RUNS``), bf16 weights from a seeded generator,
+    ``attention_impl="flash"`` (the tensor-core kernel at D=128).
+
+    Cuts (``reduced``): mixtral-8x22b 56 -> 8 layers (a layer is 5.01 GB
+    in bf16, 4.83 GB of it experts: 56 layers would take 281 GB), and
+    ``prefill_32k``'s 32 x 32768 prompts -> 2 x 8192 (the grouped
+    buffers grow with the tokens: 40960 grouped rows at capacity 5120 an
+    expert; still two windows of 4096, so the window's mask and the
+    kernel's skip of the tiles behind it both act), then 32 greedy decode
+    steps at B=2; qwen3-moe-235b-a22b 94 -> 2 layers (12.4 GB with the
+    embeddings), one 1 x 4096 prefill (capacity 320, 40960 grouped
+    rows).  Launch counts are set to 0 before each model's path and read
+    after it: the tensor-core kernel once a layer of each prefill, the
+    SIMT kernel never."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    torch.cuda.empty_cache()  # phase 7's parameters are freed
+    launches: dict = {}
+    for module, n_layers, b, s, n_dec in MOE_RUNS:
+        full = importlib.import_module(f"repro_torch.configs.{module}"
+                                       ).full_config()
+        cfg = dataclasses.replace(full, n_layers=n_layers,
+                                  attention_impl="flash")
+        got = serve_moe(cfg, b, s, n_dec, full.n_layers, profile)
+        torch.cuda.empty_cache()  # its parameters are freed
+        check(got.get("flash_attention_wgmma", 0) == n_layers,
+              f"flash_attention_wgmma launched "
+              f"{got.get('flash_attention_wgmma', 0)} times on {cfg.name}'s "
+              f"path, not {n_layers}")
+        check(got.get("flash_attention", 0) == 0,
+              f"the SIMT flash_attention launched "
+              f"{got.get('flash_attention', 0)} times on {cfg.name}'s path")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+    return {k: launches.get(k, 0) for k in LM_KERNELS}
 
 
 def profile_lm(prefill, decode, params, tokens, n_dec: int = 4) -> None:
@@ -1774,6 +2151,7 @@ def main() -> int:
     del det_params
     run_replay_lane()
     by_path["lm"] = run_lm_path(profile=profile)
+    by_path["lm_moe"] = run_moe_path(profile=profile)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,8 +1,10 @@
-"""Decoder-only LM, dense path (port of ``repro.models.transformer``).
+"""Decoder-only LM: dense / GQA / MQA / sliding-window / MoE (port of
+``repro.models.transformer``).
 
 Llama-style blocks: RMSNorm -> attention (+RoPE, GQA) -> residual,
-RMSNorm -> SwiGLU MLP -> residual; KV-cache prefill and decode, with a
-ring-buffer cache bounded by the window for sliding-window models.
+RMSNorm -> SwiGLU MLP or top-k MoE -> residual; KV-cache prefill and
+decode, with a ring-buffer cache bounded by the window for
+sliding-window models.
 
 Three attention implementations, as in the reference:
 
@@ -12,12 +14,16 @@ Three attention implementations, as in the reference:
   * ``flash``   — the hand-written CUDA kernel
     (``repro_torch.kernels.attention``), the reference's ``pallas``.
 
+MoE (:func:`moe_block`): the reference's sort-based grouped dispatch
+(tokens stably sorted by expert id, a static capacity a expert, one
+grouped product a projection), with capacity overflow dropping picks.
+
 The parameters keep the reference's stacked ``(L, ...)`` layout, with
 dense weights as ``(d_in, d_out)``, so :func:`from_jax_params` is a copy;
 the layers run as a Python loop.  ``decode_step`` computes its attention
 with plain einsums, as the reference does, and updates the cache tensors
-in place.  Serving only: the MoE blocks and the training losses are not
-ported yet (ROADMAP, queue 1, slice F).
+in place.  Serving only: the training losses are not ported yet (ROADMAP,
+queue 1, slice F).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.attention.ops import flash_attention
@@ -48,7 +55,12 @@ class TransformerConfig:
     d_head: int
     d_ff: int
     vocab_size: int
-    moe: bool = False  # the MoE blocks are not ported: True raises
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    moe_top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
     # attention
     window: int | None = None  # sliding-window size (tokens), None = full
     rope_theta: float = 10000.0
@@ -63,25 +75,42 @@ class TransformerConfig:
     def policy(self) -> L.DtypePolicy:
         return L.DtypePolicy(self.param_dtype, self.compute_dtype)
 
-    @property
-    def n_params(self) -> int:
-        """Total parameter count of the dense model."""
-        _dense_only(self)
+    def _count(self, experts: int) -> int:
         d, dh = self.d_model, self.d_head
         attn = d * (self.n_heads * dh) * 2 + d * (self.n_kv_heads * dh) * 2
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        if self.moe:
+            mlp = experts * 3 * d * self.d_ff_expert + d * self.n_experts
+        else:
+            mlp = 3 * d * self.d_ff
+        per_layer = attn + mlp + 2 * d
         emb = self.vocab_size * d * 2  # untied in/out embeddings
         return self.n_layers * per_layer + emb + d
+
+    @property
+    def n_params(self) -> int:
+        """Total parameter count."""
+        return self._count(self.n_experts)
+
+    @property
+    def n_active_params(self) -> int:
+        """Parameters a token passes through (MoE: its top-k experts)."""
+        return self._count(self.moe_top_k)
 
 
 def from_jax_config(cfg) -> TransformerConfig:
     """The reference's ``TransformerConfig`` -> the port's.
 
     Dtypes map by name; ``attention_impl="pallas"`` becomes ``"flash"``.
-    The fields the port does not have are dropped: the MoE sizes (MoE is
-    not ported), the loss's ``ce_chunk`` (training is not), and
-    ``remat``, ``sequence_parallel`` and ``moe_a2a``, autodiff and mesh
-    choices with no effect on the function.
+    The fields the port does not have are dropped, each with no effect on
+    what serving computes on one device:
+
+      * ``ce_chunk``: the chunk of the training loss, which is not ported;
+      * ``remat``: what autodiff saves (the port's steps run without it);
+      * ``sequence_parallel``: shards the residual stream's sequence axis
+        over the mesh's ``model`` axis, a layout of a mesh;
+      * ``moe_a2a``: the reference's all-to-all expert parallelism, which
+        it takes only when the mesh's ``model`` axis is larger than 1
+        (``_use_moe_a2a``); on one device it runs :func:`moe_block`.
     """
     kw = {f.name: getattr(cfg, f.name)
           for f in dataclasses.fields(TransformerConfig)}
@@ -99,10 +128,13 @@ class KVCache:
     length: Tensor  # 0-d int32: number of tokens already absorbed
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            "the MoE blocks are not ported yet (ROADMAP, queue 1, slice F)")
+@dataclasses.dataclass
+class Routing:
+    """One MoE call's routing: each token's experts ``(T, k)`` in top-k
+    order, and which of those picks kept a capacity slot (the others were
+    dropped)."""
+    expert_ids: Tensor
+    keep: Tensor
 
 
 # --------------------------------------------------------------------------
@@ -115,17 +147,29 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
     """Random parameters in the reference's layout, drawn from ``gen``
     (uniform in +-sqrt(1 / fan_in), embeddings normal * 0.02) and stored
     in ``cfg.param_dtype`` on ``device`` (the card unless the caller
-    names another, :func:`repro_torch.device.resolve_device`)."""
-    _dense_only(cfg)
+    names another, :func:`repro_torch.device.resolve_device`).  MoE
+    layers get ``"moe"`` (router and expert stacks) in place of
+    ``"mlp"``."""
     device = resolve_device(device)
     dt = cfg.param_dtype
-    d, dh, lyr, f = cfg.d_model, cfg.d_head, cfg.n_layers, cfg.d_ff
+    d, dh, lyr = cfg.d_model, cfg.d_head, cfg.n_layers
 
     def stacked(shape, fan_in):
         scale = (1.0 / fan_in) ** 0.5
         w = torch.rand((lyr,) + shape, generator=gen, dtype=torch.float32,
                        device=gen.device) * (2.0 * scale) - scale
         return w.to(device=device, dtype=dt)
+
+    def per_layer(shape, fan_in):
+        # as stacked(), but one layer's float32 draw at a time: a whole
+        # expert stack is 25.8 GB of float32 at mixtral's width and 8 layers
+        scale = (1.0 / fan_in) ** 0.5
+        out = torch.empty((lyr,) + shape, dtype=dt, device=device)
+        for i in range(lyr):
+            w = torch.rand(shape, generator=gen, dtype=torch.float32,
+                           device=gen.device)
+            out[i] = w.mul_(2.0 * scale).sub_(scale)
+        return out
 
     layers = {
         "attn": {
@@ -136,12 +180,22 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
         },
         "ln1": {"scale": torch.ones((lyr, d), dtype=dt, device=device)},
         "ln2": {"scale": torch.ones((lyr, d), dtype=dt, device=device)},
-        "mlp": {
+    }
+    if cfg.moe:
+        e, fe = cfg.n_experts, cfg.d_ff_expert
+        layers["moe"] = {
+            "router": stacked((d, e), d),
+            "w_gate": per_layer((e, d, fe), d),
+            "w_up": per_layer((e, d, fe), d),
+            "w_down": per_layer((e, fe, d), fe),
+        }
+    else:
+        f = cfg.d_ff
+        layers["mlp"] = {
             "w_gate": stacked((d, f), d),
             "w_up": stacked((d, f), d),
             "w_down": stacked((f, d), f),
-        },
-    }
+        }
     return {
         "embed": L.init_embedding(gen, cfg.vocab_size, d, dt, device),
         "layers": layers,
@@ -267,38 +321,155 @@ def _qkv(lp: Params, x: Tensor, cfg: TransformerConfig, positions: Tensor):
             L.apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _expert_products(a: Tensor, w: Tensor, cdt: torch.dtype) -> Tensor:
+    """``(E, C, d_in) x (E, d_in, d_out) -> (E, C, d_out)`` float32: the
+    operands in the compute dtype, products summed in float32 and not
+    rounded, as the reference's ``preferred_element_type=jnp.float32``
+    einsums.  On the card a bf16 product runs on the tensor cores with a
+    float32 output; on the CPU the operands are widened to float32, which
+    holds the products of bf16 values exactly."""
+    a, w = a.to(cdt), w.to(cdt)
+    if a.device.type == "cuda" and cdt != torch.float32:
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), w.to(torch.float32))
+
+
+def moe_capacity(cfg: TransformerConfig, t: int) -> int:
+    """The slots of each expert in a call of ``t`` tokens: ceil(t k / E)
+    times the capacity factor, truncated, at least 1 (the reference's
+    expression)."""
+    return max(1, int(-(-t * cfg.moe_top_k // cfg.n_experts)
+                      * cfg.capacity_factor))
+
+
+def moe_block(p: Params, x: Tensor, cfg: TransformerConfig,
+              routes: list | None = None) -> tuple[Tensor, Tensor]:
+    """Top-k MoE with grouped dispatch.  ``x``: (T, D) flattened tokens.
+    Returns (out (T, D) in x's dtype, the Switch-style load-balancing aux
+    loss); with ``routes`` (a list) the call also appends its
+    :class:`Routing`.
+
+    The reference's function at one shard (G = 1): it splits the tokens
+    into one group per data-parallel device (``gcd(T, pod * data)``,
+    1 without a mesh), and the port runs on one device.  So every token
+    of the call (a prefill's whole batch, a decode step's B tokens) shares
+    the capacity of each expert (:func:`moe_capacity`).  Picks are ranked
+    within their expert by a stable sort on expert id (token order);
+    those past the capacity are dropped and contribute 0, their gates not
+    renormalised.  The three expert products
+    sum in float32 (:func:`_expert_products`), ``silu(gate) * up`` is
+    taken in float32 and cast, and the combine runs in the compute dtype.
+    """
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    pol, cdt, dev = cfg.policy, cfg.compute_dtype, x.device
+
+    logits = L.dense({"w": p["router"]}, x, pol).to(torch.float32)  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # jax.lax.top_k puts the lower expert first among equal probabilities
+    # (bf16 router logits tie at full width); torch.topk promises no
+    # order, a stable descending sort keeps the index order of ties
+    gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+    gate_vals, expert_ids = gate_vals[:, :k], expert_ids[:, :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # load-balancing aux loss
+    me = probs.mean(dim=0)
+    counts = torch.bincount(expert_ids.reshape(-1), minlength=e).to(
+        torch.float32)
+    aux = e * torch.sum(me * counts / (t * k))
+
+    capacity = moe_capacity(cfg, t)
+
+    # each pick's rank within its expert: stable sort by expert id, then
+    # the offset from the expert's first pick (searchsorted, left side)
+    fe = expert_ids.reshape(-1)
+    order = torch.argsort(fe, stable=True)
+    se = fe[order]
+    start = torch.searchsorted(se, torch.arange(e, device=dev), side="left")
+    pos = torch.arange(t * k, device=dev) - start[se]
+    slot_sorted = torch.where(pos < capacity, se * capacity + pos,
+                              e * capacity)
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    slot = slot.view(t, k)  # (token, pick) order; e * capacity: dropped
+    keep = slot < e * capacity
+    gathered = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=dev)
+    gathered[slot.reshape(-1)] = x.repeat_interleave(k, dim=0)
+    grouped = gathered[:-1].view(e, capacity, d)
+
+    hidden = _expert_products(grouped, p["w_gate"], cdt)
+    F.silu(hidden, inplace=True)
+    hidden.mul_(_expert_products(grouped, p["w_up"], cdt))
+    hidden = hidden.to(cdt)
+    expert_out = _expert_products(hidden, p["w_down"], cdt).to(cdt)
+    del hidden  # before the combine's buffers: 1.3 GB at mixtral's prefill
+    expert_out = expert_out.view(e * capacity, d)
+
+    # the combine, in the compute dtype, adding each token's k
+    # contributions in increasing expert order, one rounding an addition,
+    # as the reference's scatter-add over the expert-sorted picks does
+    # (and deterministic, where an atomic scatter-add is not)
+    by_expert = expert_ids.argsort(dim=1)
+    slot_e = slot.gather(1, by_expert)
+    contrib = expert_out[torch.clamp(slot_e, max=e * capacity - 1)] \
+        * gate_vals.gather(1, by_expert).to(cdt)[..., None]
+    contrib = torch.where(keep.gather(1, by_expert)[..., None], contrib,
+                          torch.zeros((), dtype=cdt, device=dev))
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    if routes is not None:
+        routes.append(Routing(expert_ids, keep))
+    return out.to(x.dtype), aux
+
+
 def _finish_block(lp: Params, x: Tensor, attn_out: Tensor,
-                  cfg: TransformerConfig) -> Tensor:
-    """Output projection and residual, then the MLP half of the block."""
-    b, s = x.shape[:2]
+                  cfg: TransformerConfig, routes: list | None = None
+                  ) -> tuple[Tensor, Tensor | None]:
+    """Output projection and residual, then the MLP or MoE half of the
+    block.  Returns (x_out, the MoE aux loss or None)."""
+    b, s, d = x.shape
     attn_out = attn_out.reshape(b, s, cfg.n_heads * cfg.d_head)
     x = x + L.dense({"w": lp["attn"]["wo"]}, attn_out, cfg.policy)
     h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + dense_mlp(lp["mlp"], h2, cfg)
+    if not cfg.moe:
+        return x + dense_mlp(lp["mlp"], h2, cfg), None
+    out, aux = moe_block(lp["moe"], h2.reshape(b * s, d), cfg, routes)
+    return x + out.reshape(b, s, d), aux
 
 
-def _layer(lp: Params, x: Tensor, cfg: TransformerConfig, positions: Tensor
-           ) -> tuple[Tensor, tuple[Tensor, Tensor]]:
+def _layer(lp: Params, x: Tensor, cfg: TransformerConfig, positions: Tensor,
+           routes: list | None = None
+           ) -> tuple[Tensor, Tensor | None, tuple[Tensor, Tensor]]:
     """One decoder block of causal self-attention (train/prefill).
-    Returns (x_out, (k, v))."""
+    Returns (x_out, the MoE aux loss or None, (k, v))."""
     q, k, v = _qkv(lp, x, cfg, positions)
     attn_out = attention(q, k, v, cfg, causal=True, window=cfg.window)
-    return _finish_block(lp, x, attn_out, cfg), (k, v)
+    x, aux = _finish_block(lp, x, attn_out, cfg, routes)
+    return x, aux, (k, v)
 
 
 def forward(params: Params, tokens: Tensor, cfg: TransformerConfig,
-            positions: Tensor | None = None) -> tuple[Tensor, Tensor]:
-    """Full forward pass -> (final hidden states (B,S,D), total aux loss,
-    always 0 on the dense path)."""
-    _dense_only(cfg)
+            positions: Tensor | None = None, routes: list | None = None
+            ) -> tuple[Tensor, Tensor]:
+    """Full forward pass -> (final hidden states (B,S,D), total MoE aux
+    loss, 0 on the dense path).  With ``routes`` (a list) each MoE layer
+    appends its :class:`Routing`."""
     s = tokens.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     x = L.embedding(params["embed"], tokens, cfg.policy)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = _layer(_layer_params(params, i), x, cfg, positions)
+        x, aux, _ = _layer(_layer_params(params, i), x, cfg, positions,
+                           routes)
+        if aux is not None:
+            total = total + aux
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, total
 
 
 def logits_fn(params: Params, tokens: Tensor, cfg: TransformerConfig
@@ -332,13 +503,14 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def prefill(params: Params, tokens: Tensor, cfg: TransformerConfig,
-            max_len: int) -> tuple[Tensor, KVCache]:
+            max_len: int, routes: list | None = None
+            ) -> tuple[Tensor, KVCache]:
     """Process the prompt; returns (last-token logits (B, V) float32,
-    primed cache).
+    primed cache).  With ``routes`` (a list) each MoE layer appends its
+    :class:`Routing`.
 
     For windowed models the cache keeps the last ``window`` positions
     (ring layout: slot = pos % window)."""
-    _dense_only(cfg)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev)
@@ -349,7 +521,8 @@ def prefill(params: Params, tokens: Tensor, cfg: TransformerConfig,
         # ring layout: absolute position p lives at slot p % window
         slots = torch.arange(s - s_cache, s, device=dev) % s_cache
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer(_layer_params(params, i), x, cfg, positions)
+        x, _, (k, v) = _layer(_layer_params(params, i), x, cfg, positions,
+                              routes)
         if cfg.window is not None and s > s_cache:
             cache.k[i][:, slots] = k[:, -s_cache:]
             cache.v[i][:, slots] = v[:, -s_cache:]
@@ -364,11 +537,14 @@ def prefill(params: Params, tokens: Tensor, cfg: TransformerConfig,
 
 
 def decode_step(params: Params, token: Tensor, cache: KVCache,
-                cfg: TransformerConfig) -> tuple[Tensor, KVCache]:
+                cfg: TransformerConfig, routes: list | None = None
+                ) -> tuple[Tensor, KVCache]:
     """One decode step.  ``token``: (B,) integer.  Returns (logits (B, V)
     float32, the cache with the new token written into it in place and
-    its length advanced).  Windowed models use ring-buffer slots."""
-    _dense_only(cfg)
+    its length advanced).  Windowed models use ring-buffer slots.  An MoE
+    layer dispatches the step's B tokens together (their shared capacity
+    is ``int(ceil(B k / E) * capacity_factor)``); with ``routes`` (a list)
+    each appends its :class:`Routing`."""
     b = token.shape[0]
     pos = cache.length.to(torch.int64)  # 0-d: absolute position of the token
     s_cache = cache.k.shape[2]
@@ -399,7 +575,8 @@ def decode_step(params: Params, token: Tensor, cache: KVCache,
         s_ = s_.masked_fill(~valid[None, None, None, :], NEG_INF)
         p_ = torch.softmax(s_, dim=-1)
         attn_out = torch.einsum("bhqk,bkhd->bqhd", p_, vr.to(torch.float32))
-        x = _finish_block(lp, x, attn_out.to(cfg.compute_dtype), cfg)
+        x, _ = _finish_block(lp, x, attn_out.to(cfg.compute_dtype), cfg,
+                             routes)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = L.dense(params["unembed"], x, cfg.policy).to(torch.float32)
     cache.length.add_(1)

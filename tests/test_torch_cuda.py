@@ -41,7 +41,10 @@ from repro_torch.kernels.nms.ref import greedy_suppress_rows_ref
 from repro_torch.kernels.sphiou import ops as tsph
 from repro_torch.kernels.sphiou.ref import (sphiou_ref_batch,
                                             sphiou_ref_batch_bf16)
+from repro_torch.configs import mixtral_8x22b as tmixtral
+from repro_torch.configs import qwen3_moe_235b_a22b as tqwen
 from repro_torch.models import detector as tdet
+from repro_torch.models import transformer as tlm
 from repro_torch.serving.scheduler import TorchDetectorBackend
 
 CENTERS = [(0.0, 0.0), (3.0, 0.4), (-2.8, -0.9), (1.5, 1.3), (math.pi, 0.0),
@@ -312,6 +315,13 @@ FLASH_CASES = [
 # in bf16 (64 and 128)
 FLASH_CASES += [dict(c, d=d) for d in (64, 128) for c in FLASH_CASES[:6]
                 if c["d"] != d]
+# granite-34b's MQA layout (48 query heads on one KV head) and
+# mixtral-8x22b's (a group of 6, a window shorter than the sequence), at a
+# small S
+FLASH_CASES += [
+    dict(b=1, sq=384, skv=384, hq=48, hkv=1, d=128, causal=True, window=None),
+    dict(b=2, sq=700, skv=700, hq=12, hkv=2, d=128, causal=True, window=256),
+]
 
 
 @pytest.mark.cuda
@@ -618,3 +628,44 @@ def test_cuda_mixed_pod_step_uploads_each_frame_once(cuda):
         for d in loop._history[-1]:
             assert np.isfinite(d.box).all() and math.isfinite(d.score)
     assert any(loop._history[-1] for loop in loops[1::2])
+
+
+# -- the MoE block on the card -------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mod", [tmixtral, tqwen], ids=["mixtral", "qwen3"])
+def test_cuda_moe_block_matches_cpu(cuda, mod, dtype):
+    """``moe_block`` on the card (the expert products on the tensor cores
+    with float32 outputs in bf16) against the same code on the CPU, at the
+    smoke config's widths, 256 tokens, capacity factor 1.0 (picks
+    dropped).  float32: the same routing and outputs within 1e-5.  bf16: a
+    router logit one bf16 ulp apart can move a token to another expert,
+    and its capacity slot moves the later tokens' drops, so at least 95%
+    of the tokens route alike and those agree within 2^-6 (a few bf16
+    ulps)."""
+    cfg = dataclasses.replace(mod.smoke_config(), param_dtype=dtype,
+                              compute_dtype=dtype, capacity_factor=1.0)
+    params = tlm.init_params(torch.Generator().manual_seed(3), cfg,
+                             device="cpu")
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (256, cfg.d_model)).astype(np.float32)).to(dtype)
+    host, card = [], []
+    want, want_aux = tlm.moe_block(lp, x, cfg, host)
+    got, aux = tlm.moe_block({k: v.to(cuda) for k, v in lp.items()},
+                             x.to(cuda), cfg, card)
+    assert got.is_cuda and got.dtype == dtype
+    assert int((~host[0].keep).sum()) > 0
+    same = ((card[0].expert_ids.cpu() == host[0].expert_ids)
+            & (card[0].keep.cpu() == host[0].keep)).all(dim=1)
+    if dtype == torch.float32:
+        assert bool(same.all())
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+        assert abs(float(aux) - float(want_aux)) <= 1e-6
+    else:
+        assert float(same.float().mean()) >= 0.95
+        torch.testing.assert_close(got.cpu()[same].float(),
+                                   want[same].float(), atol=2.0 ** -6,
+                                   rtol=0)

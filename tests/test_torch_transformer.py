@@ -170,13 +170,27 @@ def test_lm_entry_points_default_to_the_card(monkeypatch):
     assert TT.init_cache(cfg, 1, 8, device="cpu").k.device.type == "cpu"
 
 
-def test_moe_is_not_ported():
+def test_moe_config_serves_through_the_steps():
+    """An MoE config (mixtral's smoke config) serves through the same
+    entry points as a dense one: parameters, a prefill and a decode step,
+    each MoE layer's routing recorded (``tests/test_torch_moe.py`` holds
+    the values to the reference)."""
     cfg = TT.from_jax_config(jmixtral.smoke_config())
-    assert cfg.moe
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.prefill({}, torch.zeros((1, 4), dtype=torch.long), cfg, 8)
+    assert cfg.moe and cfg.n_experts == 4 and cfg.moe_top_k == 2
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    assert "moe" in params["layers"] and "mlp" not in params["layers"]
+    routes = []
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, s=6)).long()
+    out = TS.lm_prefill_step(cfg, 8, routes)(params, {"tokens": toks[:, :5]})
+    dec = TS.lm_decode_step(cfg, routes)(params, {
+        "token": toks[:, 5], "cache_k": out["k"], "cache_v": out["v"],
+        "cache_len": out["length"]})
+    assert torch.isfinite(dec["logits"]).all() and int(dec["length"]) == 6
+    assert [tuple(r.expert_ids.shape) for r in routes] \
+        == [(10, 2)] * cfg.n_layers + [(2, 2)] * cfg.n_layers
+    hidden, aux = TT.forward(params, toks, cfg)
+    assert hidden.shape == (2, 6, cfg.d_model) and float(aux) > 0
 
 
 # --------------------------------------------------------------------------
