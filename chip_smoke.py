@@ -115,7 +115,31 @@ Phases, in order; any failure exits non-zero:
    within its bf16 roundings (``MOE_U``) of a per-token float32
    formulation, which a control with one kept pick zeroed must fail.
    The logits against the chunked step are held to ``LM_LOGIT_ATOL``
-   where every layer routed alike.
+   where every layer routed alike;
+9. training (no kernel: the reference's train steps reach none, and
+   ``flash_attention`` has no backward): smollm-135m ``full_config()``
+   (30 layers, bf16, ``chunked`` attention, remat, ``ce_chunk`` 512)
+   trains ``TRAIN_STEPS`` ``lm_train_step``s of ``adamw(lr=1e-3,
+   warmup_steps=10)`` on 8 x 4096 ``lm_batches`` through ``Prefetcher``
+   (``train_4k``'s global batch of 256 cut to ``TRAIN_BATCH``).  Each step
+   prints its ms (host clock, ended by ``torch.cuda.synchronize()``),
+   tokens/s, loss and grad norm, then the peak memory.  Checks: (a) at the
+   initial weights every gradient leaf is finite and every parameter group
+   (embed, each projection and norm of layers 0 and 29, ``ln_f``,
+   unembed) non-zero; (b) step 1's per-token NLL within ``TRAIN_NLL_ATOL``
+   (mean |diff|) of the float32 policy's on the widened weights, a limit
+   that the control (targets shifted by one token) must fail; (c) a
+   ``save_async`` after step ``TRAIN_SAVE_AT``, restored into a fresh
+   ``make_state`` template, equals the saved state bit for bit, leaf by
+   leaf; (d) the later steps run again from it, their losses printed
+   beside the uninterrupted run's (bit-equal or not).  Then
+   yolo-p6-1280 (width and depth 1.0, P6 head) trains
+   ``DET_TRAIN_STEPS`` ``detector_train_step``s in float32 (TF32 off) on
+   ``detector_batches`` of the synthetic video at 1920x3840, batch 8 (cut
+   to 4 if peak memory passes ``DET_TRAIN_MAX_GB``): ms a step, images/s,
+   loss, grad norm, peak memory; every gradient finite, every conv's
+   non-zero.  Launch counts are set to 0 before each of the two and read
+   after: none may have launched a kernel.
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -126,13 +150,15 @@ the gnomonic sampler, the batched projection, SphIoU and the greedy
 suppression), for the same use; it prints no result line either.
 
 ``--profile`` also profiles the last pod tick, the last mixed tick, one
-LM prefill step and four decode steps of smollm-135m and of mixtral-8x22b:
+LM prefill step and four decode steps of smollm-135m and of mixtral-8x22b,
+and one train step of smollm-135m and of yolo-p6-1280:
 the card's busy share of each, its host-to-device copies, its top kernels
 and the frame loop's kernels among them.
 
 The last lines are the kernels' JSON record (with each kernel's launches
 by path: the frame loop of phase 5, the mixed pod of phase 6, the LM of
-phase 7, the MoE LM of phase 8), the ``nvidia-smi`` line and
+phase 7, the MoE LM of phase 8, the LM's and the detector's training of
+phase 9, both 0), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
 """
@@ -2016,6 +2042,315 @@ def run_moe_path(profile: bool = False) -> dict:
     return {k: launches.get(k, 0) for k in LM_KERNELS}
 
 
+# --------------------------------------------------------------------------
+# phase 9: training
+# --------------------------------------------------------------------------
+
+# smollm-135m's train step: train_4k's sequence, its global batch of 256
+# cut to TRAIN_BATCH (one card, and neither package accumulates
+# gradients), TRAIN_STEPS steps, an async checkpoint after TRAIN_SAVE_AT
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 6, 3
+# step 1's per-token NLL (the terms whose mean is its loss) under the bf16
+# policy against the float32 policy on the same (widened) weights: mean
+# |difference|.  bf16 rounds ~10 activations a layer at 2^-9 relative;
+# over 30 layers the final hidden state drifts by a few percent, which
+# moves a logit (std ~0.6 at these random weights) and so a token's NLL
+# by a few hundredths.  The control (targets shifted by one token)
+# changes each token's picked logit, by ~0.6 on average
+TRAIN_NLL_ATOL = 0.1
+# the detector's train step: the ladder's top rung, float32, TF32 off
+DET_TRAIN_BATCH, DET_TRAIN_STEPS, DET_TRAIN_MAX_GB = 8, 3, 60.0
+
+
+def bits(t):
+    """``t``'s bits as an integer tensor (bit-for-bit comparisons)."""
+    import torch
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()])
+
+
+def token_nll(params, batch, cfg):
+    """Each token's NLL (``lm_loss``'s CE terms, no aux), no grad."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        hidden, _ = T.forward(params, batch["tokens"], cfg)
+        w32 = params["unembed"]["w"].to(cfg.compute_dtype).float()
+        out = []
+        for lo in range(0, hidden.shape[1], cfg.ce_chunk):
+            logits = hidden[:, lo:lo + cfg.ce_chunk].float() @ w32
+            t = batch["targets"][:, lo:lo + cfg.ce_chunk].long()
+            out.append(torch.logsumexp(logits, -1)
+                       - logits.gather(-1, t[..., None])[..., 0])
+    return torch.cat(out, 1)
+
+
+def check_grads(grads, groups: dict, what: str) -> None:
+    """Every leaf of ``grads`` finite; each named group's non-zero."""
+    import torch
+
+    from repro_torch import pytree
+
+    bad = [i for i, g in enumerate(pytree.leaves(grads))
+           if not bool(torch.isfinite(g).all())]
+    check(not bad, f"{what}: non-finite gradient leaves {bad}")
+    zero = [k for k, g in groups.items() if not bool((g != 0).any())]
+    print(f"{what} gradients: {len(pytree.leaves(grads))} leaves finite; "
+          f"{len(groups) - len(zero)} of {len(groups)} groups non-zero"
+          + (f" (zero: {zero})" if zero else ""))
+    check(not zero, f"{what}: zero gradients in {zero}")
+
+
+def timed_steps(step, state, batches, what: str, unit: str, per_step: int
+                ) -> tuple:
+    """Runs ``step`` over ``batches``; prints each step's ms (host clock,
+    ended by ``torch.cuda.synchronize()``), ``unit``/s, loss and grad
+    norm.  Returns (state, losses)."""
+    import torch
+
+    losses, norms = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        print(f"{what} step {int(m['step'])}: {ms:.1f} ms, "
+              f"{per_step / ms * 1e3:.0f} {unit}/s, loss {losses[-1]:.6f}, "
+              f"grad norm {norms[-1]:.6f}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{what}: non-finite loss or grad norm {losses} {norms}")
+    return state, losses
+
+
+def run_train_path(profile: bool = False) -> tuple[dict, dict]:
+    """Phase 9; returns the launches of the LM train path and of the
+    detector's."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    run_lm_train(profile)
+    lm = _build.launch_counts()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    run_detector_train(profile)
+    det = _build.launch_counts()
+    print(f"train launches: LM {lm}, detector {det}")
+    check(not lm and not det, "a training path launched a kernel, which "
+          "has no backward")
+    return lm, det
+
+
+def run_lm_train(profile: bool) -> None:
+    """smollm-135m at published widths (bf16, ``chunked`` attention,
+    remat, ``ce_chunk`` 512) trains ``TRAIN_STEPS`` steps of ``adamw(lr=
+    1e-3, warmup_steps=10)`` on ``lm_batches`` through ``Prefetcher``;
+    ``save_async`` after step ``TRAIN_SAVE_AT``, restored into a fresh
+    ``make_state`` template, which runs the later steps again."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import smollm_135m
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.data.pipeline import Prefetcher, lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    cfg = smollm_135m.full_config()
+    dev = torch.device("cuda")
+    b, s = TRAIN_BATCH, LM_SHAPES["train_4k"].seq_len
+    opt = opt_mod.adamw(lr=1e-3, warmup_steps=10)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(20), cfg,
+                           device=dev)
+    print(f"train path: {cfg.name}, {cfg.n_layers} layers, bf16, "
+          f"attention_impl={cfg.attention_impl}, remat={cfg.remat}, "
+          f"ce_chunk {cfg.ce_chunk}; batch {b} x {s} (train_4k's global "
+          f"batch {LM_SHAPES['train_4k'].global_batch} cut to {b}: one "
+          f"card, no gradient accumulation), adamw lr 1e-3 warmup 10")
+    batches = [pytree.tree_map(lambda v: torch.as_tensor(v, device=dev), x)
+               for x in Prefetcher(lm_batches(cfg.vocab_size, b, s, seed=0,
+                                              n_batches=TRAIN_STEPS))]
+
+    # (a) the gradient of every parameter group, at the initial weights
+    loss0, grads = steps_mod.value_and_grad(
+        lambda p: T.lm_loss(p, batches[0], cfg), params)
+    lyr = grads["layers"]
+    groups = {"embed": grads["embed"]["emb"], "ln_f": grads["ln_f"]["scale"],
+              "unembed": grads["unembed"]["w"]}
+    for i in (0, cfg.n_layers - 1):
+        for part, keys in (("attn", ("wq", "wk", "wv", "wo")),
+                           ("mlp", ("w_gate", "w_up", "w_down")),
+                           ("ln1", ("scale",)), ("ln2", ("scale",))):
+            for k in keys:
+                groups[f"layer{i}.{part}.{k}"] = lyr[part][k][i]
+    check_grads(grads, groups, "smollm-135m")
+    del grads, lyr, groups
+
+    state = steps_mod.make_state(params, opt)
+    step = steps_mod.lm_train_step(cfg, opt)
+    mgr = CheckpointManager(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses = timed_steps(
+        step, state, batches[:TRAIN_SAVE_AT], "smollm-135m train",
+        "tokens", b * s)
+    saved = state
+    mgr.save_async(TRAIN_SAVE_AT, saved)
+    state, more = timed_steps(
+        step, state, batches[TRAIN_SAVE_AT:], "smollm-135m train", "tokens",
+        b * s)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"smollm-135m train: peak memory {peak:.2f} GB; step 1 loss "
+          f"{losses[0]:.6f} (the gradient check's {float(loss0):.6f})")
+    losses += more
+
+    # (b) step 1's per-token NLL against the float32 policy's, and the
+    # control with the targets shifted by one token
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    nll = token_nll(params, batches[0], cfg)
+    nll32 = token_nll(pytree.tree_map(lambda t: t.float(), params),
+                      batches[0], cfg32)
+    shifted = dict(batches[0], targets=batches[0]["targets"].roll(1, 1))
+    nll_ctl = token_nll(params, shifted, cfg)
+    err = float((nll - nll32).abs().mean())
+    ctl = float((nll_ctl - nll32).abs().mean())
+    print(f"smollm-135m step 1 loss {losses[0]:.6f}: bf16 per-token NLL "
+          f"(mean {float(nll.mean()):.6f}) against the float32 policy's "
+          f"(mean {float(nll32.mean()):.6f}): mean |diff| {err:.4g}, max "
+          f"{float((nll - nll32).abs().max()):.4g} (limit {TRAIN_NLL_ATOL}); "
+          f"the control with the targets shifted by one token {ctl:.4g}")
+    check(err <= TRAIN_NLL_ATOL,
+          f"smollm-135m step 1 NLL against float32: {err}")
+    check(ctl > TRAIN_NLL_ATOL,
+          f"the shifted-target control passed the NLL check: {ctl}")
+    del nll, nll32, nll_ctl
+
+    # (c) the restored state equals the saved one bit for bit
+    mgr.wait()
+    template = steps_mod.make_state(
+        T.init_params(torch.Generator(device=dev).manual_seed(21), cfg,
+                      device=dev), opt)
+    restored = mgr.restore(TRAIN_SAVE_AT, template)
+    got, want = pytree.leaves(restored), pytree.leaves(saved)
+    same = sum(g.dtype == w.dtype and bool(torch.equal(bits(g), bits(w)))
+               for g, w in zip(got, want))
+    print(f"smollm-135m checkpoint at step {TRAIN_SAVE_AT}: "
+          f"{mgr.manifest(TRAIN_SAVE_AT)['n_leaves']} leaves, {same} of "
+          f"{len(want)} restored bit for bit; optimizer step "
+          f"{int(restored['opt']['step'])}")
+    check(same == len(want) == len(got),
+          "the restored state differs from the saved one")
+
+    # (d) the later steps again from the restored state
+    _, resumed = timed_steps(
+        step, restored, batches[TRAIN_SAVE_AT:], "smollm-135m resumed",
+        "tokens", b * s)
+    equal = resumed == losses[TRAIN_SAVE_AT:]
+    print(f"smollm-135m resumed losses {resumed} against the uninterrupted "
+          f"run's {losses[TRAIN_SAVE_AT:]}: "
+          f"{'bit-equal' if equal else 'not bit-equal'}")
+    if profile:
+        profile_train_step(step, state, batches[-1], "smollm-135m")
+    del state, saved, restored, template, params
+
+
+def run_detector_train(profile: bool) -> None:
+    """The detector's train step at the ladder's top rung (yolo-p6-1280:
+    width and depth 1.0, P6 head), float32 with TF32 off, ``adamw``,
+    ``DET_TRAIN_STEPS`` steps on ``detector_batches`` of the synthetic
+    video at 1920x3840.  The batch is cut from ``DET_TRAIN_BATCH`` to
+    half if peak memory passes ``DET_TRAIN_MAX_GB``."""
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.data.pipeline import Prefetcher, detector_batches
+    from repro_torch.data.synthetic import make_video
+    from repro_torch.models import detector as det_mod
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    cfg = det_mod.PAPER_LADDER[-1]
+    dev = torch.device("cuda")
+    params = det_mod.init_params(torch.Generator(device=dev).manual_seed(30),
+                                 cfg, device=dev)
+    video = make_video(n_frames=8, n_objects=20, seed=11)
+    opt = opt_mod.adamw(lr=1e-3)
+    step = steps_mod.detector_train_step(cfg, opt)
+    for b in (DET_TRAIN_BATCH, DET_TRAIN_BATCH // 2):
+        t = time.perf_counter()
+        batches = [pytree.tree_map(lambda v: torch.as_tensor(v, device=dev),
+                                   x)
+                   for x in Prefetcher(detector_batches(
+                       video, cfg, b, height=1920, width=3840, seed=0,
+                       n_batches=DET_TRAIN_STEPS))]
+        print(f"detector train path: {cfg.name} ({cfg.input_size} px, width "
+              f"{cfg.width_mult}, depth {cfg.depth_mult}, strides "
+              f"{cfg.strides}), float32, TF32 off, adamw lr 1e-3, batch {b}; "
+              f"{DET_TRAIN_STEPS} batches rendered in "
+              f"{time.perf_counter() - t:.1f}s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss0, grads = steps_mod.value_and_grad(
+            lambda p: det_mod.detection_loss(p, batches[0], cfg), params)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if peak <= DET_TRAIN_MAX_GB:
+            break
+        print(f"detector train: peak memory {peak:.2f} GB at batch {b} "
+              f"passes {DET_TRAIN_MAX_GB} GB: batch cut to {b // 2}")
+        del grads, batches
+        torch.cuda.empty_cache()
+    convs = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            if "w" in t and t["w"].dim() == 4:
+                convs[path] = t["w"]
+            for k, v in t.items():
+                walk(v, f"{path}.{k}" if path else k)
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, f"{path}[{i}]")
+    walk(grads, "")
+    check_grads(grads, convs, cfg.name)
+    del grads
+    state = steps_mod.make_state(params, opt)
+    state, losses = timed_steps(step, state, batches, f"{cfg.name} train",
+                                "images", b)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{cfg.name} train: batch {b}, peak memory {peak:.2f} GB; step 1 "
+          f"loss {losses[0]:.6f} (the gradient check's {float(loss0):.6f})")
+    if profile:
+        profile_train_step(step, state, batches[-1], cfg.name)
+
+
+def profile_train_step(step, state, batch, what: str) -> None:
+    """One train step under the profiler: the card's busy share and its
+    top kernels."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    print_profile(prof, wall, f"one {what} train step", top=12)
+
+
 def profile_lm(prefill, decode, params, tokens, n_dec: int = 4) -> None:
     """One prefill step and ``n_dec`` decode steps under the profiler:
     the card's busy share of each, and their top kernels."""
@@ -2152,6 +2487,8 @@ def main() -> int:
     run_replay_lane()
     by_path["lm"] = run_lm_path(profile=profile)
     by_path["lm_moe"] = run_moe_path(profile=profile)
+    by_path["lm_train"], by_path["detector_train"] = run_train_path(
+        profile=profile)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

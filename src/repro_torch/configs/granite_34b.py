@@ -8,7 +8,12 @@ port's first benchmark (``configs/base.py``).
 
 import torch
 
+from repro_torch.configs.base import FULL_ATTENTION_SKIP, LM_SHAPES
 from repro_torch.models.transformer import TransformerConfig
+
+FAMILY = "lm"
+SHAPES = LM_SHAPES
+SKIP = FULL_ATTENTION_SKIP
 
 
 def full_config() -> TransformerConfig:
@@ -25,6 +30,8 @@ def full_config() -> TransformerConfig:
         compute_dtype=torch.bfloat16,
         attention_impl="chunked",
         attn_chunk=1024,
+        ce_chunk=256,
+        remat=True,
     )
 
 
@@ -40,4 +47,6 @@ def smoke_config() -> TransformerConfig:
         vocab_size=128,
         attention_impl="chunked",
         attn_chunk=32,
+        ce_chunk=16,
+        remat=False,
     )

@@ -8,7 +8,12 @@ bounds the decode cache: a ring of ``WINDOW`` slots.
 
 import torch
 
+from repro_torch.configs.base import LM_SHAPES
 from repro_torch.models.transformer import TransformerConfig
+
+FAMILY = "lm"
+SHAPES = LM_SHAPES
+SKIP: dict = {}  # the window makes long_500k feasible
 
 WINDOW = 4096
 
@@ -32,6 +37,8 @@ def full_config() -> TransformerConfig:
         compute_dtype=torch.bfloat16,
         attention_impl="chunked",
         attn_chunk=1024,
+        ce_chunk=256,
+        remat=True,
     )
 
 
@@ -52,4 +59,6 @@ def smoke_config() -> TransformerConfig:
         window=16,
         attention_impl="chunked",
         attn_chunk=16,
+        ce_chunk=16,
+        remat=False,
     )

@@ -7,7 +7,12 @@ bf16 weights and compute; full attention.
 
 import torch
 
+from repro_torch.configs.base import FULL_ATTENTION_SKIP, LM_SHAPES
 from repro_torch.models.transformer import TransformerConfig
+
+FAMILY = "lm"
+SHAPES = LM_SHAPES
+SKIP = FULL_ATTENTION_SKIP
 
 
 def full_config() -> TransformerConfig:
@@ -28,6 +33,8 @@ def full_config() -> TransformerConfig:
         compute_dtype=torch.bfloat16,
         attention_impl="chunked",
         attn_chunk=1024,
+        ce_chunk=256,
+        remat=True,
     )
 
 
@@ -47,4 +54,6 @@ def smoke_config() -> TransformerConfig:
         d_ff_expert=48,
         attention_impl="chunked",
         attn_chunk=16,
+        ce_chunk=16,
+        remat=False,
     )

@@ -1,1 +1,2 @@
-"""Synthetic 360-degree scenes (port of ``repro.data``)."""
+"""Synthetic 360-degree scenes and the training data pipeline (port of
+``repro.data``)."""

@@ -20,7 +20,8 @@ Both read the ``(B, S, H, D)`` tensors through their strides (no
 a block multiple).
 
 For tensors on the CPU the wrapper runs the plain PyTorch version
-(``ref.py``); for CUDA tensors it launches a kernel or raises.
+(``ref.py``); for CUDA tensors it launches a kernel or raises.  Under
+autograd it raises on either device (there is no backward).
 """
 
 from __future__ import annotations
@@ -102,6 +103,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v on different devices")
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: train with "
+            "attention_impl='chunked' (or 'naive')")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -114,6 +119,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     returns (B, Sq, Hq, D) in q's dtype.  Scores, softmax and the value
     product run in float32.  ``q_offset`` is the absolute position of
     ``q[:, 0]`` (decode and chunked prefill, where Sq != Skv).
+
+    The kernels have no backward (nor has the reference's Pallas kernel),
+    so with grad enabled and an input that requires grad this raises
+    ``RuntimeError``, on the CPU too: a kernel's output would carry no
+    gradient back to q, k or v.
     """
     _check(q, k, v, window)
     if scale is None:

@@ -1,2 +1,2 @@
-"""Launchers of the port (``repro_torch.launch.serve``: the pod serving
-driver)."""
+"""Launchers of the port: ``repro_torch.launch.serve`` (the pod serving
+driver), ``replay`` and ``train`` (the training driver)."""

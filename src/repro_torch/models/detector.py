@@ -235,6 +235,37 @@ def decode(outs: list[Tensor], cfg: DetectorConfig,
     return top_boxes, top_scores, top_cls
 
 
+def detection_loss(params: Params, batch: dict, cfg: DetectorConfig
+                   ) -> Tensor:
+    """Dense detection loss against per-scale target maps (the
+    reference's): objectness BCE over every cell, L1 on (dx, dy, log w,
+    log h) and class cross-entropy over the positive cells, averaged over
+    the scales.
+
+    ``batch``: images (B, S, S, 3) and, per scale i, ``targets_i``
+    (B, S/stride, S/stride, 5 + n_classes) with [dx, dy, log w, log h,
+    obj, one-hot class] (``repro_torch.data.pipeline.rasterize_targets``).
+    """
+    outs = apply(params, batch["images"], cfg)
+    total = 0.0
+    for i, out in enumerate(outs):
+        tgt = batch[f"targets_{i}"]
+        obj_t = tgt[..., 4]
+        obj_logit = out[..., 4]
+        obj_loss = torch.mean(
+            torch.clamp(obj_logit, min=0) - obj_logit * obj_t
+            + torch.log1p(torch.exp(-torch.abs(obj_logit))))
+        pos = obj_t > 0.5
+        n_pos = torch.clamp(pos.sum(dtype=torch.float32), min=1.0)
+        box_err = torch.abs(out[..., 0:4] - tgt[..., 0:4]).sum(-1)
+        box_loss = torch.where(pos, box_err, 0.0).sum() / n_pos
+        cls_ll = torch.log_softmax(out[..., 5:], dim=-1)
+        cls_loss = -torch.where(pos[..., None], tgt[..., 5:] * cls_ll,
+                                0.0).sum() / n_pos
+        total = total + obj_loss + 0.5 * box_loss + 0.5 * cls_loss
+    return total / len(outs)
+
+
 def flops_per_image(cfg: DetectorConfig) -> float:
     """Analytic MAC estimate (x2 = FLOPs) used by the latency profiles."""
     s = cfg.input_size

@@ -22,8 +22,16 @@ The parameters keep the reference's stacked ``(L, ...)`` layout, with
 dense weights as ``(d_in, d_out)``, so :func:`from_jax_params` is a copy;
 the layers run as a Python loop.  ``decode_step`` computes its attention
 with plain einsums, as the reference does, and updates the cache tensors
-in place.  Serving only: the training losses are not ported yet (ROADMAP,
-queue 1, slice F).
+in place.
+
+Training: :func:`lm_loss` (:func:`chunked_ce_loss`, the cross-entropy in
+sequence chunks that never holds the (tokens, vocab) logits, plus the
+MoE aux loss).  With ``cfg.remat`` set and grad enabled, autograd saves
+no activation inside a layer, an attention chunk or a CE chunk: each is
+recomputed in the backward (``torch.utils.checkpoint``, non-reentrant),
+at the reference's three ``jax.checkpoint`` sites.  Flash attention has
+no backward (the reference's Pallas kernel neither), so training runs
+``chunked`` or ``naive``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.attention.ops import flash_attention
@@ -66,10 +75,13 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     attention_impl: str = "chunked"  # naive | chunked | flash
     attn_chunk: int = 1024
+    # loss
+    ce_chunk: int = 512
     # numerics
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-6
+    remat: bool = True  # recompute layers and chunks in the backward
 
     @property
     def policy(self) -> L.DtypePolicy:
@@ -102,10 +114,8 @@ def from_jax_config(cfg) -> TransformerConfig:
 
     Dtypes map by name; ``attention_impl="pallas"`` becomes ``"flash"``.
     The fields the port does not have are dropped, each with no effect on
-    what serving computes on one device:
+    what one device computes:
 
-      * ``ce_chunk``: the chunk of the training loss, which is not ported;
-      * ``remat``: what autodiff saves (the port's steps run without it);
       * ``sequence_parallel``: shards the residual stream's sequence axis
         over the mesh's ``model`` axis, a layout of a mesh;
       * ``moe_a2a``: the reference's all-to-all expert parallelism, which
@@ -242,8 +252,42 @@ def _layer_params(params: Params, i: int) -> Params:
 # --------------------------------------------------------------------------
 
 
-def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, chunk):
-    """Online softmax over KV chunks (flash attention in plain PyTorch)."""
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``; with ``on`` and grad enabled, autograd keeps only
+    its inputs and recomputes the rest in the backward."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _attention_chunk(q32, k, v, m, l, acc, lo, chunk, qpos, causal, window,
+                     scale):
+    """One KV chunk ``[lo, lo + chunk)`` of the online softmax: the
+    running max, sum and accumulator after it."""
+    kb = k[:, lo:lo + chunk].to(torch.float32)
+    vb = v[:, lo:lo + chunk].to(torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, kb) * scale
+    kpos = lo + torch.arange(kb.shape[1], device=q32.device)
+    mask = torch.ones((q32.shape[1], kb.shape[1]), dtype=torch.bool,
+                      device=q32.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = s.masked_fill(~mask[None, None], NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None]).masked_fill(~mask[None, None], 0.0)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+    return m_new, l, acc
+
+
+def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, chunk,
+                       remat=False):
+    """Online softmax over KV chunks (flash attention in plain PyTorch).
+    With ``remat``, each chunk's scores are recomputed in the backward,
+    not saved: saved, they would be the whole (Sq, Skv) softmax."""
     b, sq, h, dh = q.shape
     skv = k.shape[1]
     chunk = min(chunk, skv)
@@ -253,23 +297,8 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, chunk):
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
     for lo in range(0, skv, chunk):
-        kb = k[:, lo:lo + chunk].to(torch.float32)
-        vb = v[:, lo:lo + chunk].to(torch.float32)
-        s = torch.einsum("bqhd,bkhd->bhqk", q32, kb) * scale
-        kpos = lo + torch.arange(kb.shape[1], device=q.device)
-        mask = torch.ones((sq, kb.shape[1]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window is not None:
-            mask &= kpos[None, :] > qpos[:, None] - window
-        s = s.masked_fill(~mask[None, None], NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None]).masked_fill(~mask[None, None], 0.0)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
-        m = m_new
+        m, l, acc = _remat(remat, _attention_chunk, q32, k, v, m, l, acc, lo,
+                           chunk, qpos, causal, window, scale)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
@@ -291,7 +320,7 @@ def attention(q, k, v, cfg: TransformerConfig, *, causal=True, window=None,
         v = v.repeat_interleave(rep, dim=2)
     return _chunked_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset, scale=scale,
-                              chunk=cfg.attn_chunk)
+                              chunk=cfg.attn_chunk, remat=cfg.remat)
 
 
 # --------------------------------------------------------------------------
@@ -326,10 +355,14 @@ def _expert_products(a: Tensor, w: Tensor, cdt: torch.dtype) -> Tensor:
     operands in the compute dtype, products summed in float32 and not
     rounded, as the reference's ``preferred_element_type=jnp.float32``
     einsums.  On the card a bf16 product runs on the tensor cores with a
-    float32 output; on the CPU the operands are widened to float32, which
-    holds the products of bf16 values exactly."""
+    float32 output; on the CPU, and wherever autograd records the product
+    (``torch.bmm``'s float32-output form has no derivative), the operands
+    are widened to float32, which holds the products of bf16 values
+    exactly.  Widened, the backward is the reference's too: the float32
+    cotangent against the widened operand, rounded to the compute dtype."""
     a, w = a.to(cdt), w.to(cdt)
-    if a.device.type == "cuda" and cdt != torch.float32:
+    if a.device.type == "cuda" and cdt != torch.float32 and not (
+            torch.is_grad_enabled() and (a.requires_grad or w.requires_grad)):
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.to(torch.float32), w.to(torch.float32))
 
@@ -457,19 +490,73 @@ def forward(params: Params, tokens: Tensor, cfg: TransformerConfig,
             ) -> tuple[Tensor, Tensor]:
     """Full forward pass -> (final hidden states (B,S,D), total MoE aux
     loss, 0 on the dense path).  With ``routes`` (a list) each MoE layer
-    appends its :class:`Routing`."""
+    appends its :class:`Routing`; not under remat, whose backward would
+    run each layer again."""
     s = tokens.shape[1]
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and routes is not None:
+        raise ValueError("routes are not recorded under remat")
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     x = L.embedding(params["embed"], tokens, cfg.policy)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, aux, _ = _layer(_layer_params(params, i), x, cfg, positions,
-                           routes)
+        x, aux, _ = _remat(remat, _layer, _layer_params(params, i), x, cfg,
+                           positions, routes)
         if aux is not None:
             total = total + aux
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, total
+
+
+def _ce_chunk(h: Tensor, w: Tensor, t: Tensor, cdt: torch.dtype
+              ) -> tuple[Tensor, Tensor]:
+    """One chunk's (summed NLL, count of targets): float32 logits of the
+    chunk's hidden states, ``logsumexp`` minus the target's logit; a
+    target < 0 counts nothing.  The logits are the reference's
+    ``preferred_element_type=float32`` product: operands in the compute
+    dtype, widened to float32 (exact products), float32 sums.  So each
+    chunk's gradient of ``w`` rounds to ``w``'s dtype before the chunks'
+    are added, as the reference's scan adds them."""
+    logits = torch.matmul(h.to(cdt).to(torch.float32),
+                          w.to(cdt).to(torch.float32))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, t.clamp(min=0)[..., None].long())[..., 0]
+    valid = t >= 0
+    nll = torch.where(valid, lse - picked, 0.0)
+    return nll.sum(), valid.sum(dtype=torch.float32)
+
+
+def chunked_ce_loss(hidden: Tensor, unembed_w: Tensor, targets: Tensor,
+                    cfg: TransformerConfig) -> Tensor:
+    """Mean cross-entropy without the (B, S, V) logits: the unembedding
+    and ``logsumexp`` run ``cfg.ce_chunk`` positions at a time (the
+    sequence padded to whole chunks with target -1), each chunk under
+    remat (:func:`_ce_chunk`)."""
+    b, s, _ = hidden.shape
+    chunk = min(cfg.ce_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    tot_nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tot_cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s + pad, chunk):
+        nll, cnt = _remat(cfg.remat, _ce_chunk, hidden[:, lo:lo + chunk],
+                          unembed_w, targets[:, lo:lo + chunk],
+                          cfg.compute_dtype)
+        tot_nll = tot_nll + nll
+        tot_cnt = tot_cnt + cnt
+    return tot_nll / torch.clamp(tot_cnt, min=1.0)
+
+
+def lm_loss(params: Params, batch: dict, cfg: TransformerConfig) -> Tensor:
+    """The training loss: CE of ``batch["targets"]`` given
+    ``batch["tokens"]`` (both (B, S)), plus 0.01 times the MoE aux loss."""
+    hidden, aux = forward(params, batch["tokens"], cfg)
+    loss = chunked_ce_loss(hidden, params["unembed"]["w"], batch["targets"],
+                           cfg)
+    return loss + 0.01 * aux
 
 
 def logits_fn(params: Params, tokens: Tensor, cfg: TransformerConfig

@@ -1,1 +1,2 @@
-"""The training package (port of ``repro.training``): the LM serving steps."""
+"""The training package (port of ``repro.training``): the train and serve
+steps, the optimizers and gradient compression."""

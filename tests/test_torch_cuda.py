@@ -14,6 +14,15 @@ any fixed bound; the greedy keep masks are equal exactly; the bf16
 SphIoU option is held to its bf16 plain version within 2^-6 (a few bf16
 ulps of an IoU) and to the float32 kernel's keep masks by the
 reference's flip gate.
+
+The training path (no kernel: the reference's train steps reach none):
+a train step on the card against the same step on the CPU, float32 with
+TF32 off (loss and grad norm rtol 1e-5, the parameters as
+``tests/test_torch_training.py`` bounds two AdamW runs: every one within
+2 lr a step, 99.9% within 1e-3 lr) and bf16 (the MoE block's backward:
+loss rtol 2^-6, each gradient leaf's cosine with the CPU's at least 0.99,
+since a router logit one bf16 ulp apart can move a token to another
+expert).
 """
 
 from __future__ import annotations
@@ -46,6 +55,12 @@ from repro_torch.configs import qwen3_moe_235b_a22b as tqwen
 from repro_torch.models import detector as tdet
 from repro_torch.models import transformer as tlm
 from repro_torch.serving.scheduler import TorchDetectorBackend
+from repro_torch import pytree
+from repro_torch.checkpoint.checkpoint import CheckpointManager
+from repro_torch.configs import smollm_135m as tsmol
+from repro_torch.data.pipeline import lm_batches, rasterize_targets
+from repro_torch.training import optimizer as topt
+from repro_torch.training import steps as tsteps
 
 CENTERS = [(0.0, 0.0), (3.0, 0.4), (-2.8, -0.9), (1.5, 1.3), (math.pi, 0.0),
            (0.0, 1.5)]
@@ -669,3 +684,145 @@ def test_cuda_moe_block_matches_cpu(cuda, mod, dtype):
         torch.testing.assert_close(got.cpu()[same].float(),
                                    want[same].float(), atol=2.0 ** -6,
                                    rtol=0)
+
+
+# -- training on the card ---------------------------------------------------
+
+
+@pytest.fixture
+def fp32():
+    """TF32 off in cuDNN and cuBLAS for the test, restored after."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def _to(tree, device):
+    return pytree.tree_map(lambda t: torch.as_tensor(t).to(device), tree)
+
+
+def _two_steps(step, params, opt, batches, device):
+    """(metrics, final state) of ``step`` over ``batches`` from
+    ``params`` on ``device``."""
+    state = tsteps.make_state(_to(params, device), opt)
+    metrics = []
+    for batch in batches:
+        state, m = step(state, _to(batch, device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, state
+
+
+def _assert_adamw_close(got, ref, lr, steps):
+    diff = torch.cat([(g.cpu().float() - r.float()).abs().ravel()
+                      for g, r in zip(pytree.leaves(got),
+                                      pytree.leaves(ref))])
+    assert float(diff.max()) <= 2 * lr * steps
+    assert float(torch.quantile(diff, 0.999)) <= 1e-3 * lr
+
+
+@pytest.mark.cuda
+def test_cuda_lm_train_step_float32_matches_cpu(cuda, fp32):
+    cfg = tsmol.smoke_config()
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    opt = topt.adamw(lr=1e-3, warmup_steps=2)
+    step = tsteps.lm_train_step(cfg, opt)
+    batches = list(lm_batches(cfg.vocab_size, 4, 40, seed=1, n_batches=2))
+    host, hstate = _two_steps(step, params, opt, batches, "cpu")
+    card, cstate = _two_steps(step, params, opt, batches, cuda)
+    assert cstate["params"]["embed"]["emb"].is_cuda
+    for h, c in zip(host, card):
+        for k in ("loss", "grad_norm"):
+            assert c[k] == pytest.approx(h[k], rel=1e-5)
+    _assert_adamw_close(cstate["params"], hstate["params"], 1e-3, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_step_bf16_matches_cpu(cuda):
+    """mixtral's smoke config in bf16: the MoE block's backward on the
+    card (``torch.bmm``'s float32-output form has no derivative, so under
+    autograd the expert products widen to float32, as on the CPU)."""
+    cfg = dataclasses.replace(tmixtral.smoke_config(),
+                              param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    params = tlm.init_params(torch.Generator().manual_seed(3), cfg,
+                             device="cpu")
+    batch = next(lm_batches(cfg.vocab_size, 4, 48, seed=2))
+    grads = {}
+    for dev in ("cpu", cuda):
+        loss, g = tsteps.value_and_grad(
+            lambda p: tlm.lm_loss(p, _to(batch, dev), cfg), _to(params, dev))
+        grads[str(dev)] = (float(loss), g)
+    (lh, gh), (lc, gc) = grads["cpu"], grads[str(cuda)]
+    assert lc == pytest.approx(lh, rel=2.0 ** -6)
+    for a, b in zip(pytree.leaves(gh), pytree.leaves(gc)):
+        assert b.is_cuda and b.dtype == torch.bfloat16
+        assert bool(torch.isfinite(b).all()) and bool((b != 0).any())
+        cos = torch.nn.functional.cosine_similarity(
+            a.float().ravel(), b.cpu().float().ravel(), dim=0)
+        assert float(cos) >= 0.99
+    # and the train step runs on the card
+    opt = topt.adamw(lr=1e-3)
+    state, m = tsteps.lm_train_step(cfg, opt)(
+        tsteps.make_state(_to(params, cuda), opt), _to(batch, cuda))
+    assert int(state["step"]) == 1 and np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.cuda
+def test_cuda_detector_train_step_matches_cpu(cuda, fp32):
+    cfg = tdet.PAPER_LADDER[0]  # yolo-tiny-416
+    params = tdet.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(5)
+    batch = {"images": rng.random((2, cfg.input_size, cfg.input_size, 3)
+                                  ).astype(np.float32)}
+    batch.update(rasterize_targets(cfg, 2))
+    opt = topt.adamw(lr=1e-3)
+    step = tsteps.detector_train_step(cfg, opt)
+    host, hstate = _two_steps(step, params, opt, [batch], "cpu")
+    card, cstate = _two_steps(step, params, opt, [batch], cuda)
+    assert card[0]["loss"] == pytest.approx(host[0]["loss"], rel=1e-5)
+    assert card[0]["grad_norm"] == pytest.approx(host[0]["grad_norm"],
+                                                 rel=1e-4)
+    _assert_adamw_close(cstate["params"], hstate["params"], 1e-3, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip(cuda, tmp_path):
+    """A CUDA state (bf16 parameters, float32 moments, an int32 step)
+    restores onto the card bit for bit; ``save_async`` snapshots before
+    it returns."""
+    cfg = tsmol.smoke_config()
+    params = tlm.init_params(torch.Generator().manual_seed(0),
+                             dataclasses.replace(
+                                 cfg, param_dtype=torch.bfloat16), device=cuda)
+    opt = topt.adamw()
+    state = tsteps.make_state(params, opt)
+    state["opt"]["mu"]["embed"]["emb"].normal_()
+    want = [t.clone() for t in pytree.leaves(state)]
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(5, state)
+    state["params"]["embed"]["emb"].mul_(2)
+    mgr.wait()
+    got = mgr.restore(5, state)
+    for g, w in zip(pytree.leaves(got), want):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        ints = {2: torch.int16, 4: torch.int32}[w.element_size()]
+        assert torch.equal(g.view(ints), w.view(ints))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_autograd(cuda):
+    q = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    _build.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tattn.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tattn.launch("wgmma", q, q, q)
+    assert _build.launch_counts() == {}
+    with torch.no_grad():
+        assert tattn.flash_attention(q, q, q).shape == q.shape

@@ -4,7 +4,15 @@ reduced ladder, with the reference's own weights (``from_jax_params``).
 f32 throughout; ``apply``'s heads agree within 1e-4 (the convolutions
 run in XLA on one side and in PyTorch's CPU kernels on the other, so
 sums are taken in another order), ``decode``'s boxes and scores within
-1e-4 and its classes exactly.
+1e-4 and its classes exactly.  ``detection_loss`` within rtol 1e-5 and
+its gradients within atol 1e-4 and rtol 1e-3 (a convolution's weight
+gradient sums over every pixel of the batch, ~10^4 terms, in each
+backend's order); one ``detector_train_step``'s loss and grad norm within
+rtol 1e-4, its parameters as ``tests/test_torch_training.py`` bounds two
+AdamW runs (every one within 2 lr, 99.9% within 1e-3 lr: where a
+gradient is near 0 a sum-order difference can turn its sign, and
+AdamW's first step, ``g / (|g| + eps)``, then moves the two runs up to lr
+apart; 0.5 lr read on the CPU for one parameter).
 """
 
 from __future__ import annotations
@@ -19,8 +27,14 @@ import torch
 
 from repro.models import detector as jdet
 from repro.models import layers as jlayers
+from repro.training import optimizer as jopt
+from repro.training import steps as jsteps
+from repro_torch import pytree
+from repro_torch.data.pipeline import rasterize_targets
 from repro_torch.models import detector as tdet
 from repro_torch.models import layers as tlayers
+from repro_torch.training import optimizer as topt
+from repro_torch.training import steps as tsteps
 
 
 def _cfgs(mod):
@@ -149,3 +163,63 @@ def test_flops_per_image_matches_reference():
         assert tdet.flops_per_image(tc) == jdet.flops_per_image(jc)
         assert (tc.name, tc.input_size, tc.strides) == \
             (jc.name, jc.input_size, jc.strides)
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def _train_batch(cfg, b=2, seed=3):
+    batch = {"images": np.random.default_rng(seed).random(
+        (b, cfg.input_size, cfg.input_size, 3)).astype(np.float32)}
+    batch.update(rasterize_targets(cfg, b))
+    return batch
+
+
+def _grads_oihw(tree):
+    """A gradient tree of the reference's in the port's layout."""
+    return tdet.from_jax_params(jax.tree_util.tree_map(np.asarray, tree))
+
+
+def test_detection_loss_and_grads_match_reference(ladder):
+    jc, jp, tc, tp = ladder[0]
+    batch = _train_batch(jc)
+    jl, jg = jax.jit(jax.value_and_grad(lambda p: jdet.detection_loss(
+        p, {k: jnp.asarray(v) for k, v in batch.items()}, jc)))(jp)
+    tl, tg = tsteps.value_and_grad(lambda p: tdet.detection_loss(
+        p, {k: torch.from_numpy(v) for k, v in batch.items()}, tc), tp)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    for got, ref in zip(pytree.leaves(tg), pytree.leaves(_grads_oihw(jg))):
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+
+
+def test_detector_train_and_serve_steps_match_reference(ladder):
+    jc, jp, tc, tp = ladder[0]
+    batch = _train_batch(jc)
+    lr = 1e-3
+    jo, to = jopt.adamw(lr=lr), topt.adamw(lr=lr)
+    js, jm = jax.jit(jsteps.detector_train_step(jc, jo))(
+        jsteps.make_state(jp, jo),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    ts, tm = tsteps.detector_train_step(tc, to)(
+        tsteps.make_state(tp, to),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4)
+    assert int(tm["step"]) == int(ts["opt"]["step"]) == 1
+    diff = np.concatenate([
+        np.abs(g.numpy() - r.numpy()).ravel() for g, r in zip(
+            pytree.leaves(ts["params"]),
+            pytree.leaves(_grads_oihw(js["params"])))])
+    assert diff.max() <= 2 * lr
+    assert np.quantile(diff, 0.999) <= 1e-3 * lr
+    images = batch["images"][:1]
+    jout = jsteps.detector_serve_step(jc)(jp, {"images": jnp.asarray(images)})
+    tout = tsteps.detector_serve_step(tc)(tp, {"images": torch.from_numpy(
+        images)})
+    assert set(tout) == set(jout) == {"boxes", "scores", "classes"}
+    np.testing.assert_allclose(tout["scores"].numpy(),
+                               np.asarray(jout["scores"]), atol=1e-4)

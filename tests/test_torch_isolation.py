@@ -45,7 +45,10 @@ def test_every_module_imports_without_jax_or_reference():
               "serving.traffic", "serving.batching", "serving.baselines",
               "launch.serve", "launch.replay", "serving.tasks",
               "serving.fleet", "serving.replay", "distributed.elastic",
-              "models.vision", "models.action"):
+              "models.vision", "models.action", "pytree",
+              "training.optimizer", "training.compression",
+              "training.steps", "checkpoint.checkpoint", "data.pipeline",
+              "configs.base", "launch.train"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"

@@ -345,10 +345,13 @@ def test_configs_match_reference(jmod, tmod):
     for make in ("full_config", "smoke_config"):
         jcfg = getattr(jmod, make)()
         assert TT.from_jax_config(jcfg) == getattr(tmod, make)()
-        # the mesh and autodiff fields are dropped
+        # the mesh fields are dropped; the loss's chunk and remat carry
         assert TT.from_jax_config(dataclasses.replace(
-            jcfg, moe_a2a=True, sequence_parallel=True, remat=False,
-            ce_chunk=7)) == getattr(tmod, make)()
+            jcfg, moe_a2a=True, sequence_parallel=True)) \
+            == getattr(tmod, make)()
+        carried = TT.from_jax_config(dataclasses.replace(
+            jcfg, remat=not jcfg.remat, ce_chunk=7))
+        assert (carried.remat, carried.ce_chunk) == (not jcfg.remat, 7)
     jfull, tfull = jmod.full_config(), tmod.full_config()
     assert tfull.param_dtype == tfull.compute_dtype == torch.bfloat16
     assert tfull.n_params == jfull.n_params
