@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from the sources in the checkout (one ``nvcc``
    per source, all started together), and print the ``-Xptxas -v``
-   report (registers, spills, shared memory) of the tensor-core flash
-   kernel, the greedy suppression's two kernels, the batched projection
-   and the SphIoU kernels (self and general path);
+   report (registers, spills, shared memory) of both flash kernels, the
+   greedy suppression's two kernels, the batched projection and the
+   SphIoU kernels (self and general path); the float32 flash kernel's 8
+   instances (float32 and bf16 at D 16, 32, 64, 128) must spill nothing;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes: max |err| against the stated tolerance, the
    kernel's, the plain version's and (where one PyTorch call computes
@@ -31,7 +32,9 @@ Phases, in order; any failure exits non-zero:
    and bf16 at their head sizes, the tensor-core kernel in bf16 at D=64
    and D=128), at smollm-135m's 4x2048 shape (float32 on the SIMT
    kernel, bf16 on both), at the float32 policy's 1x2048 (the SIMT
-   kernel's path shape, timed beside SDPA in float32), at 32k (the
+   kernel's path shape; it and the float32 4x2048 are launched twice,
+   which must give the same bits, and timed beside SDPA in float32 and
+   the plain version), at 32k (the
    tensor-core kernel against the SIMT one), and, at D=128, at
    mixtral-8x22b's prefill layout (2x8192, 48/8 heads, window 4096) and
    granite-34b's MQA layout (1x4096, 48/1 heads), each with a control
@@ -139,7 +142,11 @@ Phases, in order; any failure exits non-zero:
    to 4 if peak memory passes ``DET_TRAIN_MAX_GB``): ms a step, images/s,
    loss, grad norm, peak memory; every gradient finite, every conv's
    non-zero.  Launch counts are set to 0 before each of the two and read
-   after: none may have launched a kernel.
+   after: none may have launched a kernel.  Last, one detector step is
+   run twice from one state under cuDNN's defaults and again with
+   ``torch.backends.cudnn.deterministic`` on and ``benchmark`` off
+   (restored after): whether the loss, grad norm and updated parameters
+   are bit-equal, and the ms a step under each.
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -168,6 +175,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -312,6 +320,24 @@ def print_ptxas(lines: list[str], kernel: str | tuple[str, ...]) -> None:
             on = False
         if on or "warning" in ln.lower():
             print(f"ptxas {ln}")
+
+
+def check_no_spills(lines: list[str], kernel: str, instances: int) -> None:
+    """Every function whose mangled name holds ``kernel`` (``instances``
+    of them) compiled with 0 bytes of spill stores and loads."""
+    spills, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            cur = name if kernel in name else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur:
+            spills[cur] = (int(m[1]), int(m[2]))
+    check(len(spills) == instances,
+          f"ptxas: {len(spills)} {kernel} instances, want {instances}")
+    bad = {n: v for n, v in spills.items() if v != (0, 0)}
+    check(not bad, f"ptxas: {kernel} spills (stores, loads): {bad}")
+    print(f"ptxas: {instances} {kernel} instances, 0 bytes spilled")
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS
@@ -861,47 +887,49 @@ def check_flash(records: dict) -> None:
     # float32 at the reference's tolerance (the SIMT kernel), then in bf16
     # through both kernels against one bf16 ulp of the plain version, with
     # the control beside it
+    # in float32 (the SIMT kernel): smollm-135m's 4 x 2048 and the float32
+    # policy's LM prefill (phase 7, 1 x 2048), the shape the SIMT kernel
+    # serves on a path.  Each is checked, launched twice (the outputs must
+    # be bit-equal: the kernel combines a row tile's split in a fixed
+    # order), then the kernel, SDPA in float32 (TF32 off, as the port's
+    # policy sets it) and the plain version are timed in turn
     b, s, hq, hkv, d = 4, 2048, 9, 3, 64
     q, k, v = qkv(b, s, s, hq, hkv, d, torch.float32)
-    got = ops.flash_attention(q, k, v, causal=True)
-    ref = flash_attention_ref(q, k, v, causal=True)
-    err32 = float((got - ref).abs().max())
-    check(bool(torch.allclose(got, ref, atol=2e-5, rtol=1e-4)),
-          f"flash_attention smollm shape float32: max |err| {err32}")
     ctl = attention_rows(q, k, v, drop=s // 2)
-    ctl_err = float((ctl - ref).abs().max())
-    check(not torch.allclose(ctl, ref, atol=2e-5, rtol=1e-4),
-          "flash_attention smollm shape float32: the control passes")
-    print(f"kernel flash_attention B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
-          f"float32 causal: max|err| {err32:.3g} (atol 2e-5 + rtol 1e-4; "
-          f"the control with {ATTN_DROPPED_TILE} keys dropped {ctl_err:.3g}, "
-          f"fails)")
-    # the float32 policy's LM prefill (phase 7, 1 x 2048), the shape the
-    # SIMT kernel serves on a path: checked, then the kernel, SDPA in
-    # float32 (TF32 off, as the port's policy sets it) and the plain
-    # version timed in turn
-    q1, k1, v1 = (x[:1].contiguous() for x in (q, k, v))
-    got = ops.flash_attention(q1, k1, v1, causal=True)
-    ref = flash_attention_ref(q1, k1, v1, causal=True)
-    err1 = float((got - ref).abs().max())
-    check(bool(torch.allclose(got, ref, atol=2e-5, rtol=1e-4)),
-          f"flash_attention 1x{s} float32: max |err| {err1}")
-    ms = time_ms(lambda: ops.flash_attention(q1, k1, v1, causal=True))
-    lib = sdpa_call(q1, k1, v1)
-    lib_ms = time_ms(lib)
-    plain_ms = time_ms(lambda: flash_attention_ref(q1, k1, v1, causal=True),
-                       reps=5)
-    b_ms, b_by = flash_bound(1, s, hq, hkv, d, float32=True)
-    shape = f"B=1 S={s} Hq={hq} Hkv={hkv} D={d} float32 causal"
-    lib_err = float((got - lib().transpose(1, 2)).abs().max())
-    print(f"kernel flash_attention {shape}: max|err| {err1:.3g} (atol 2e-5 + "
-          f"rtol 1e-4; against SDPA {lib_err:.3g}), ms {ms:.4f}, plain_ms "
-          f"{plain_ms:.4f}, library_ms {lib_ms:.4f} (SDPA float32, TF32 off), "
-          f"bound_ms {b_ms:.5f} ({b_by})")
+    for bb in (b, 1):
+        q1, k1, v1 = (x[:bb].contiguous() for x in (q, k, v))
+        got = ops.flash_attention(q1, k1, v1, causal=True)
+        again = ops.flash_attention(q1, k1, v1, causal=True)
+        ref = flash_attention_ref(q1, k1, v1, causal=True)
+        err1 = float((got - ref).abs().max())
+        shape = f"B={bb} S={s} Hq={hq} Hkv={hkv} D={d} float32 causal"
+        check(bool(torch.allclose(got, ref, atol=2e-5, rtol=1e-4)),
+              f"flash_attention {shape}: max |err| {err1}")
+        check(bool(torch.equal(got, again)),
+              f"flash_attention {shape}: two launches differ")
+        ctl_err = float((ctl[:bb] - ref).abs().max())
+        check(not torch.allclose(ctl[:bb], ref, atol=2e-5, rtol=1e-4),
+              f"flash_attention {shape}: the control passes")
+        ms = time_ms(lambda: ops.flash_attention(q1, k1, v1, causal=True))
+        lib = sdpa_call(q1, k1, v1)
+        lib_ms = time_ms(lib)
+        plain_ms = time_ms(
+            lambda: flash_attention_ref(q1, k1, v1, causal=True), reps=5)
+        again_ms = time_ms(
+            lambda: ops.flash_attention(q1, k1, v1, causal=True))
+        b_ms, b_by = flash_bound(bb, s, hq, hkv, d, float32=True)
+        lib_err = float((got - lib().transpose(1, 2)).abs().max())
+        print(f"kernel flash_attention {shape}: max|err| {err1:.3g} (atol "
+              f"2e-5 + rtol 1e-4; the control with {ATTN_DROPPED_TILE} keys "
+              f"dropped {ctl_err:.3g}, fails; against SDPA {lib_err:.3g}); "
+              f"two launches bit-equal; ms {ms:.4f} (again {again_ms:.4f}), "
+              f"plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f} (SDPA "
+              f"float32, TF32 off), bound_ms {b_ms:.5f} ({b_by}); kernel / "
+              f"bound {ms / b_ms:.2f}x, kernel / SDPA {ms / lib_ms:.2f}x")
+        del q1, k1, v1, lib
     records["flash_attention"] = dict(
         max_abs_err=err1, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, shape=shape)
-    del q1, k1, v1
 
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     ref = flash_attention_ref(q, k, v, causal=True)
@@ -2332,8 +2360,50 @@ def run_detector_train(profile: bool) -> None:
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"{cfg.name} train: batch {b}, peak memory {peak:.2f} GB; step 1 "
           f"loss {losses[0]:.6f} (the gradient check's {float(loss0):.6f})")
+    repeat_detector_step(step, state, batches[0], cfg.name)
     if profile:
         profile_train_step(step, state, batches[-1], cfg.name)
+
+
+def repeat_detector_step(step, state, batch, what: str) -> None:
+    """Whether the detector's float32 train step gives the same bits
+    twice from one state: under cuDNN's defaults, then with
+    ``torch.backends.cudnn.deterministic`` on and ``benchmark`` off (both
+    restored after).  Prints whether the two runs' loss, grad norm and
+    updated parameters are bit-equal, and each setting's ms a step."""
+    import torch
+
+    from repro_torch import pytree
+
+    def twice():
+        runs = []
+        for _ in range(2):
+            t = time.perf_counter()
+            new, m = step(state, batch)
+            torch.cuda.synchronize()
+            runs.append(((time.perf_counter() - t) * 1e3, m, new))
+        (ms0, m0, p0), (ms1, m1, p1) = runs
+        same = [bool(torch.equal(bits(m0[x]), bits(m1[x])))
+                for x in ("loss", "grad_norm")]
+        same.append(all(torch.equal(bits(x), bits(y)) for x, y in zip(
+            pytree.leaves(p0["params"]), pytree.leaves(p1["params"]))))
+        return ms0, ms1, same
+
+    cudnn = torch.backends.cudnn
+    default = twice()
+    before = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        pinned = twice()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = before
+    for name, (ms0, ms1, same) in (
+            (f"cuDNN defaults (deterministic {before[0]}, benchmark "
+             f"{before[1]})", default),
+            ("cudnn.deterministic True, benchmark False", pinned)):
+        print(f"{what} one step twice from one state, {name}: {ms0:.1f} / "
+              f"{ms1:.1f} ms; bit-equal: loss {same[0]}, grad norm "
+              f"{same[1]}, updated parameters {same[2]}")
 
 
 def profile_train_step(step, state, batch, what: str) -> None:
@@ -2455,7 +2525,10 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32})")
     t0 = time.perf_counter()
     print(f"build: {_build.build_all():.1f}s for {_build.kernel_names()}")
-    print_ptxas(_build.ptxas_report("attention"), "flash_wgmma_kernel")
+    print_ptxas(_build.ptxas_report("attention"),
+                ("flash_wgmma_kernel", "flash_fwd_kernel"))
+    # the SIMT kernel: float32 and bf16 at D 16, 32, 64 and 128
+    check_no_spills(_build.ptxas_report("attention"), "flash_fwd_kernel", 8)
     print_ptxas(_build.ptxas_report("nms"), "greedy_")
     print_ptxas(_build.ptxas_report("gnomonic"), "project_srois_kernel")
     print_ptxas(_build.ptxas_report("sphiou"),

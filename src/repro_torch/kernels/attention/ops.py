@@ -12,12 +12,18 @@ Two kernels serve it, by dtype and head size (:func:`route`):
 - ``csrc/attention.cu``: float32 at every D in ``HEAD_DIMS`` and bf16 at
   D 16 and 32, float32 FMAs on the CUDA cores, counted as
   ``flash_attention``.  The reference's float32 tolerance (atol 2e-5,
-  rtol 1e-4) rules out the TF32 tensor cores for float32.
+  rtol 1e-4) rules out the TF32 tensor cores for float32.  Where a few
+  heads leave the card's SMs short of work, a cluster of up to
+  ``SIMT_MAX_SPLIT`` CTAs shares each 64-row tile (``ref.py``'s
+  ``split_factor`` and ``flash_attention_split_ref`` show the plan and its
+  arithmetic).
 
 Both read the ``(B, S, H, D)`` tensors through their strides (no
 ``(B*H, S, D)`` fold copy), map query head ``h`` to KV head
 ``h // (Hq // Hkv)`` (no ``repeat``) and mask ragged tails (no padding to
-a block multiple).
+a block multiple).  Both load whole 16-byte chunks of a row (TMA, or
+``cp.async``), so a view whose rows do not start on 16 bytes is copied
+first (:func:`tma_operand`).
 
 For tensors on the CPU the wrapper runs the plain PyTorch version
 (``ref.py``); for CUDA tensors it launches a kernel or raises.  Under
@@ -32,7 +38,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.attention.ref import flash_attention_ref
+from repro_torch.kernels.attention.ref import (SIMT_MAX_SPLIT,
+                                               flash_attention_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,8 +90,9 @@ def tma_ok(x: torch.Tensor) -> bool:
 
 
 def tma_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself where TMA can map it, else a packed copy (a copy of
-    the operand for the tensor-core kernel, not another kernel)."""
+    """``x`` itself where TMA can map it (and 16-byte ``cp.async`` can
+    read its rows), else a packed copy (a copy of the operand for either
+    kernel, not another kernel)."""
     return x if tma_ok(x) else x.clone(memory_format=torch.contiguous_format)
 
 
@@ -162,21 +170,17 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kern = KERNELS[kernel]
     if scale is None:
         scale = d ** -0.5
-    if b * hq > 2**31 - 1 or -(-sq // kern.block_q) > _MAX_GRID_Y:
+    n_qt = -(-sq // kern.block_q)
+    if (b * hq * n_qt * SIMT_MAX_SPLIT > 2**31 - 1 if kernel == "simt"
+            else b * hq > 2**31 - 1 or n_qt > _MAX_GRID_Y):
         raise ValueError(f"B*Hq={b * hq} or Sq={sq} exceeds the kernel's grid")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    if kernel == "wgmma":
-        if skv == 0:  # no key: every row is fully masked (a map needs one)
-            return out.zero_()
-        q, k, v = (tma_operand(x) for x in (q, k, v))
-        head = (d,)
-    else:
-        # the kernel reads through strides, but the head axis must be dense
-        q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
-                   for x in (q, k, v))
-        head = (_DTYPES[q.dtype], d)
+    if kernel == "wgmma" and skv == 0:
+        return out.zero_()  # every row is fully masked (a map needs a key)
+    q, k, v = (tma_operand(x) for x in (q, k, v))
+    head = (d,) if kernel == "wgmma" else (_DTYPES[q.dtype], d)
     fn = _build.bind("attention", kern.symbol, kern.argtypes)
     _build.count(kern.name)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

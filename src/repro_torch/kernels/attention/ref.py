@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the flash-attention kernels (ports of
 ``repro/kernels/attention/ref.py`` ``mha_ref`` and
-``repro/kernels/attention/ops.py`` ``flash_attention_ref``), and an
-emulation of the tensor-core kernel's arithmetic
-(:func:`flash_attention_tiled_ref`).
+``repro/kernels/attention/ops.py`` ``flash_attention_ref``), and
+emulations of the kernels' arithmetic: the tensor-core kernel's
+(:func:`flash_attention_tiled_ref`) and the float32 kernel's, with the
+plan by which it splits a row tile's keys (:func:`kv_band`,
+:func:`split_factor`, :func:`flash_attention_split_ref`).
 
 They materialise ``(Sq, Skv)`` (or ``(Sq, BLOCK_K)``) score matrices in
 float32: fine at test shapes and for checking the kernels on the card,
@@ -16,6 +18,12 @@ import torch
 Tensor = torch.Tensor
 NEG_INF = -1e30  # the reference's masked logit
 BLOCK_K = 128  # keys a K/V tile of csrc/attention_wgmma.cu (kBK)
+# csrc/attention.cu: query rows a CTA (kBQ), keys a K/V tile (kBK), CTAs
+# that may share a row tile (kMaxSplit)
+SIMT_BLOCK_Q = SIMT_BLOCK_K = 64
+SIMT_MAX_SPLIT = 8
+H100_SMS = 132
+LOG2E = 1.4426950408889634
 
 
 def mha_ref(q: Tensor, k: Tensor, v: Tensor, *, scale: float,
@@ -109,4 +117,108 @@ def flash_attention_tiled_ref(q: Tensor, k: Tensor, v: Tensor, *,
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def kv_band(i0: int, sq: int, skv: int, *, causal: bool,
+            window: int | None, q_offset: int) -> tuple[int, int]:
+    """The K/V tiles ``[begin, end)`` of ``SIMT_BLOCK_K`` keys that can
+    hold an unmasked key for the ``SIMT_BLOCK_Q`` query rows from ``i0``
+    (``attention.cu``'s ``kv_band``)."""
+    q_lo = q_offset + i0
+    q_hi = q_offset + min(i0 + SIMT_BLOCK_Q, sq) - 1
+    n_kt = -(-skv // SIMT_BLOCK_K)
+    end = n_kt
+    if causal:
+        end = 0 if q_hi < 0 else min(min(q_hi, skv - 1) // SIMT_BLOCK_K + 1,
+                                     n_kt)
+    begin = max(0, q_lo - (window - 1)) // SIMT_BLOCK_K if window else 0
+    return min(begin, end), end
+
+
+def split_factor(b: int, sq: int, skv: int, hq: int, *, causal: bool,
+                 window: int | None, q_offset: int, n_sm: int = H100_SMS
+                 ) -> int:
+    """The CTAs that share each row tile (``attention.cu``'s
+    ``choose_split``): the longest band is split in two until one CTA's
+    share is at most half an SM's mean load, up to ``SIMT_MAX_SPLIT``."""
+    bands = [kv_band(i0, sq, skv, causal=causal, window=window,
+                     q_offset=q_offset)
+             for i0 in range(0, sq, SIMT_BLOCK_Q)]
+    total = sum(e - s for s, e in bands) * b * hq
+    most = max(e - s for s, e in bands)
+    split = 1
+    while (split < SIMT_MAX_SPLIT and 2 * split <= most
+           and -(-most // split) * 2 * n_sm > total):
+        split *= 2
+    return split
+
+
+def flash_attention_split_ref(q: Tensor, k: Tensor, v: Tensor, *,
+                              causal: bool = True, window: int | None = None,
+                              q_offset: int = 0, scale: float | None = None,
+                              split: int | None = None, rescale: bool = True
+                              ) -> Tensor:
+    """The float32 kernel's arithmetic in plain PyTorch (float32 math for
+    float32 or bf16 inputs): each ``SIMT_BLOCK_Q``-row tile's band of
+    ``SIMT_BLOCK_K``-key tiles dealt to ``split`` partial online softmaxes
+    (tiles ``r``, ``r + split``, ...) in base 2 (scores times
+    ``scale * log2(e)``, ``exp2``; a masked score is ``-inf``, the running
+    max starts at -1e30), then the partials ``(m_r, l_r, acc_r)`` combined
+    in rank order, each rescaled by ``exp2(m_r - m)``.  ``split=None``
+    takes the kernel's choice on an H100 (:func:`split_factor`).  With
+    ``rescale=False``, the control: partials added as they are.  Same
+    interface as :func:`flash_attention_ref`."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if split is None:
+        split = split_factor(b, sq, skv, hq, **kw)
+    c2 = scale * LOG2E
+    rep = hq // hkv
+    qf = q.float().transpose(1, 2)  # (B, Hq, Sq, D)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    out = torch.empty((b, hq, sq, d), device=q.device)
+    for i0 in range(0, sq, SIMT_BLOCK_Q):
+        qt = qf[:, :, i0:i0 + SIMT_BLOCK_Q]
+        qpos = q_offset + i0 + torch.arange(qt.shape[2],
+                                            device=q.device)[:, None]
+        begin, end = kv_band(i0, sq, skv, **kw)
+        parts = []
+        for r in range(split):
+            m = torch.full(qt.shape[:3], NEG_INF, device=q.device)
+            l = torch.zeros(qt.shape[:3], device=q.device)
+            acc = torch.zeros(qt.shape, device=q.device)
+            for kt in range(begin + r, end, split):
+                j0 = kt * SIMT_BLOCK_K
+                kb = kf[:, :, j0:j0 + SIMT_BLOCK_K]
+                kpos = j0 + torch.arange(kb.shape[2], device=q.device)[None]
+                mask = torch.ones((qt.shape[2], kb.shape[2]),
+                                  dtype=torch.bool, device=q.device)
+                if causal:
+                    mask &= kpos <= qpos
+                if window is not None:
+                    mask &= kpos > qpos - window
+                s = torch.einsum("bhqd,bhkd->bhqk", qt, kb) * c2
+                s = s.masked_fill(~mask, float("-inf"))
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = l * alpha + p.sum(dim=-1)
+                vb = vf[:, :, j0:j0 + SIMT_BLOCK_K]
+                acc = acc * alpha[..., None] + p @ vb
+                m = m_new
+            parts.append((m, l, acc))
+        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        lsum = torch.zeros_like(mx)
+        osum = torch.zeros_like(parts[0][2])
+        for m, l, acc in parts:  # rank order
+            w = torch.exp2(m - mx) if rescale else torch.ones_like(m)
+            lsum = lsum + l * w
+            osum = osum + acc * w[..., None]
+        out[:, :, i0:i0 + SIMT_BLOCK_Q] = osum / torch.clamp(
+            lsum, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)

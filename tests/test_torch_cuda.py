@@ -337,6 +337,17 @@ FLASH_CASES += [
     dict(b=1, sq=384, skv=384, hq=48, hkv=1, d=128, causal=True, window=None),
     dict(b=2, sq=700, skv=700, hq=12, hkv=2, d=128, causal=True, window=256),
 ]
+# the float32 kernel's split and K/V ring: smollm-135m's layout at the
+# float32 policy's 1 x 2048 prefill (a cluster of CTAs a row tile) and one
+# past it, a q_offset with a window that crosses the split's tiles, and
+# D=128 in float32
+FLASH_CASES += [
+    dict(b=1, sq=2048, skv=2048, hq=9, hkv=3, d=64, causal=True, window=None),
+    dict(b=1, sq=2049, skv=2049, hq=9, hkv=3, d=64, causal=True, window=None),
+    dict(b=1, sq=1000, skv=1500, hq=9, hkv=3, d=64, causal=True, window=700),
+    dict(b=1, sq=1100, skv=1100, hq=4, hkv=2, d=128, causal=True,
+         window=None),
+]
 
 
 @pytest.mark.cuda
@@ -372,6 +383,30 @@ def test_cuda_flash_attention(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (FLASH_CASES[-4], torch.float32),  # 1 x 2048: split across a cluster
+    (FLASH_CASES[-2], torch.float32),  # q_offset and a window
+    (dict(b=4, sq=2048, skv=2048, hq=9, hkv=3, d=64, causal=True,
+          window=None), torch.float32),  # no split
+    (dict(FLASH_CASES[-2], d=32), torch.bfloat16),
+])
+def test_cuda_flash_attention_is_bit_equal_across_launches(cuda, case, dtype):
+    """The float32 kernel combines a row tile's partials in a fixed order,
+    so two launches on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def mk(s, h):
+        return torch.randn((case["b"], s, h, case["d"]), generator=gen,
+                           device=cuda).to(dtype)
+    q, k, v = mk(case["sq"], case["hq"]), mk(case["skv"], case["hkv"]), \
+        mk(case["skv"], case["hkv"])
+    kw = dict(causal=case["causal"], window=case["window"],
+              q_offset=case["skv"] - case["sq"])
+    first = tattn.launch("simt", q, k, v, **kw)
+    assert torch.equal(first, tattn.launch("simt", q, k, v, **kw))
+
+
+@pytest.mark.cuda
 def test_cuda_flash_wgmma_reads_packed_views(cuda):
     """bf16 q, k and v at D=64 as views into a packed qkv tensor, which
     TMA maps as they lie: the tensor-core kernel reads them without a
@@ -404,6 +439,29 @@ def test_cuda_flash_attention_reads_strided_views(cuda):
         atol=2e-5, rtol=1e-4)
     with pytest.raises(ValueError, match="head size"):
         tattn.flash_attention(qkv[..., :24], qkv[..., :24], qkv[..., :24])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_copies_unaligned_views(cuda, dtype):
+    """Both kernels read whole 16-byte chunks of a row: views whose base
+    lies off 16 bytes are copied first (one launch all the same)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    flat = torch.randn(2 * 90 * 15 * 32 + 1, generator=gen, device=cuda
+                       ).to(dtype)[1:]
+    qkv = flat.view(2, 90, 15, 32)
+    q, k, v = qkv[:, 30:, :9], qkv[:, :, 9:12], qkv[:, :, 12:]
+    assert not tattn.tma_ok(q)
+    _build.reset_launch_counts()
+    got = tattn.flash_attention(q, k, v, causal=True, q_offset=30)
+    assert _build.launch_counts() == {"flash_attention": 1}
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=30)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+    else:
+        excess = (got.float() - ref.float()).abs() \
+            - 2.0 ** -7 * ref.float().abs()
+        assert float(excess.max()) <= 2e-5
 
 
 @pytest.mark.cuda
