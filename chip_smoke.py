@@ -146,7 +146,29 @@ Phases, in order; any failure exits non-zero:
    run twice from one state under cuDNN's defaults and again with
    ``torch.backends.cudnn.deterministic`` on and ``benchmark`` off
    (restored after): whether the loss, grad norm and updated parameters
-   are bit-equal, and the ms a step under each.
+   are bit-equal, and the ms a step under each;
+10. the vision family (no kernel: its attention is the plain
+   ``_mha_full``, its convolutions, norms and pools cuDNN's and
+   PyTorch's): ViT-B/16, ConvNeXt-B, ResNet-50 and ResNet-152 at their
+   published widths and depths (``full_config()``, bf16, seeded random
+   weights).  Each serves ``vision_serve_step`` at ``serve_b128`` (128 x
+   224²) and ``serve_b1`` (ms a batch, images/s, peak memory), and its
+   bf16 logits of 8 images are held to the float32 policy's on the same
+   weights within ``VISION_BF16_RTOL`` (relative norm), a limit that the
+   control (the float32 logits of another batch) must fail.  A ResNet-50
+   and a ConvNeXt-B backbone detector run one forward and ``decode`` at
+   640², batch 8, bf16: head grids 80/40/20, finite boxes.  Then each arch
+   trains ``VISION_TRAIN_STEPS`` ``vision_train_step``s (remat, ``adamw(lr=
+   1e-3, warmup_steps=10)``) at ``cls_224`` (batch 256 x 224²): ms a step,
+   images/s, loss, grad norm, accuracy, peak memory.  Checks: at the
+   initial weights every gradient leaf finite and every trainable one
+   non-zero (the batchnorm ``mean``/``var`` leaves 0 by construction: the
+   loss reads the batch's statistics); on ResNet the running stats all
+   moved after the steps and a serve step left them bit-equal; the
+   ResNet-50 and ConvNeXt-B states (batchnorm stats; ConvNeXt's ``None``
+   first downsample) restored from a ``CheckpointManager`` bit for bit.
+   Launch counts are set to 0 before the serve runs and before the train
+   runs, and read after each: none may have launched a kernel.
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -158,14 +180,16 @@ suppression), for the same use; it prints no result line either.
 
 ``--profile`` also profiles the last pod tick, the last mixed tick, one
 LM prefill step and four decode steps of smollm-135m and of mixtral-8x22b,
-and one train step of smollm-135m and of yolo-p6-1280:
+and one train step of smollm-135m, of yolo-p6-1280 and of each vision
+arch:
 the card's busy share of each, its host-to-device copies, its top kernels
 and the frame loop's kernels among them.
 
 The last lines are the kernels' JSON record (with each kernel's launches
 by path: the frame loop of phase 5, the mixed pod of phase 6, the LM of
 phase 7, the MoE LM of phase 8, the LM's and the detector's training of
-phase 9, both 0), the ``nvidia-smi`` line and
+phase 9 and the vision serve and train paths of phase 10, all four 0),
+the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
 """
@@ -2472,6 +2496,311 @@ def print_profile(prof, wall_ms: float, what: str = "tick 3",
         print(f"  port kernel {ms:9.4f} ms  {n:5d}x  {name[:90]}")
 
 
+# --------------------------------------------------------------------------
+# phase 10: the vision family
+# --------------------------------------------------------------------------
+
+# the four vision archs, each at its published width and depth (bf16)
+VISION_ARCHS = ("vit_b16", "convnext_b", "resnet_50", "resnet_152")
+VISION_TRAIN_STEPS, VISION_SERVE_REPS = 3, 5
+# the bf16 serve logits against the float32 policy's on the same weights
+# and images: |l16 - l32| / |l32| (Frobenius norms).  On the CPU at cut
+# depths (ViT 3 layers, ConvNeXt depths (1, 1, 3, 1), ResNet-50 depths
+# (1, 2, 2, 1); batch 4 at 224) it read 0.0075, 0.0054 and 0.0024, and
+# the control (the float32 logits of another image batch) 1.00, 1.45 and
+# 0.073; bf16 rounds ~10 activations a block at 2^-9 relative, so the
+# full depths sit a few times higher
+VISION_BF16_RTOL = 0.03
+# the backbone detector: two backbones at 640 px, batch 8, bf16
+VISION_DET_RES, VISION_DET_BATCH = 640, 8
+
+
+def vision_groups(tree, path: str = "") -> list:
+    """(path, leaf) of every leaf of a vision parameter tree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in vision_groups(v, f"{path}.{k}" if path else k)]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in vision_groups(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def is_bn_stat(path: str) -> bool:
+    return path.endswith((".mean", ".var"))
+
+
+def run_vision_path(profile: bool = False) -> tuple[dict, dict]:
+    """Phase 10; returns the launches of the vision serve path (the
+    backbone detector included) and of the vision train path."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    for i, arch in enumerate(VISION_ARCHS):
+        serve_vision(arch, seed=40 + i)
+    serve_backbone_detectors()
+    serve = _build.launch_counts()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    for i, arch in enumerate(VISION_ARCHS):
+        train_vision(arch, seed=50 + i, profile=profile)
+    train = _build.launch_counts()
+    print(f"vision launches: serve {serve}, train {train}")
+    check(not serve and not train, "a vision path launched a kernel: its "
+          "attention is the plain one and its convolutions cuDNN's")
+    return serve, train
+
+
+def vision_images(b: int, res: int, seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, res, res, 3), generator=gen, device="cuda")
+
+
+def serve_vision(arch: str, seed: int) -> None:
+    """``vision_serve_step`` of ``arch``'s ``full_config()`` at
+    ``serve_b128`` and ``serve_b1`` (ms a batch, images/s, peak memory),
+    then the bf16 logits against the float32 policy's and the control."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.configs.base import VISION_SHAPES
+    from repro_torch.models import vision as V
+    from repro_torch.training import steps as steps_mod
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").full_config()
+    dev = torch.device("cuda")
+    params = V.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                           device=dev)
+    step = steps_mod.vision_serve_step(cfg)
+    print(f"vision serve: {cfg.name} ({cfg.n_params / 1e6:.1f}M parameters, "
+          f"bf16, {cfg.img_res}px)")
+    for shape in ("serve_b128", "serve_b1"):
+        spec = VISION_SHAPES[shape]
+        images = vision_images(spec.batch, spec.img_res, seed)
+        reps = VISION_SERVE_REPS if spec.batch > 1 else 4 * VISION_SERVE_REPS
+        for _ in range(2):
+            out = step(params, {"images": images})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = step(params, {"images": images})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / reps
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        logits = out["logits"]
+        check(tuple(logits.shape) == (spec.batch, cfg.n_classes)
+              and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all()),
+              f"{cfg.name} {shape}: logits {tuple(logits.shape)} "
+              f"{logits.dtype}")
+        print(f"{cfg.name} {shape} ({spec.batch} x {spec.img_res}²): "
+              f"{ms:.2f} ms a batch, {spec.batch / ms * 1e3:.0f} images/s, "
+              f"peak memory {peak:.2f} GB")
+
+    # the bf16 logits against the float32 policy's on the same weights
+    images = vision_images(8, cfg.img_res, seed + 100)
+    other = vision_images(8, cfg.img_res, seed + 200)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = pytree.tree_map(lambda t: t.float(), params)
+    step32 = steps_mod.vision_serve_step(cfg32)
+    l16 = step(params, {"images": images})["logits"]
+    l32 = step32(params32, {"images": images})["logits"]
+    ctl = step32(params32, {"images": other})["logits"]
+    err = float((l16 - l32).norm() / l32.norm())
+    ctl_err = float((ctl - l32).norm() / l32.norm())
+    print(f"{cfg.name} bf16 logits against the float32 policy's (8 x "
+          f"{cfg.img_res}², TF32 off): |l16 - l32| / |l32| {err:.4g} (limit "
+          f"{VISION_BF16_RTOL}); the control, another batch's float32 "
+          f"logits, {ctl_err:.4g}")
+    check(err <= VISION_BF16_RTOL, f"{cfg.name}: bf16 logits {err} from "
+          f"the float32 policy's")
+    check(ctl_err > VISION_BF16_RTOL, f"{cfg.name}: the control passed the "
+          f"bf16 check: {ctl_err}")
+
+
+def serve_backbone_detectors() -> None:
+    """One forward and ``decode`` of a ResNet-50 and a ConvNeXt-B
+    backbone detector at ``VISION_DET_RES`` px, batch
+    ``VISION_DET_BATCH``, bf16: the heads' grids and finite boxes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import convnext_b, resnet_50
+    from repro_torch.models import detector as det_mod
+
+    dev = torch.device("cuda")
+    images = vision_images(VISION_DET_BATCH, VISION_DET_RES, 60)
+    for i, mod in enumerate((resnet_50, convnext_b)):
+        bb = dataclasses.replace(mod.full_config(), img_res=VISION_DET_RES)
+        cfg = det_mod.BackboneDetectorConfig(
+            f"{bb.name}-det", bb, VISION_DET_RES,
+            param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+        params = det_mod.backbone_detector_init(
+            torch.Generator(device=dev).manual_seed(61 + i), cfg, device=dev)
+        with torch.no_grad():
+            for _ in range(2):
+                outs = det_mod.backbone_detector_apply(params, images, cfg)
+                boxes, scores, cls = det_mod.decode(outs, cfg)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = det_mod.backbone_detector_apply(params, images, cfg)
+            boxes, scores, cls = det_mod.decode(outs, cfg)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        grids = [o.shape[1] for o in outs]
+        print(f"backbone detector {cfg.name} ({VISION_DET_BATCH} x "
+              f"{VISION_DET_RES}², bf16): heads {[tuple(o.shape) for o in outs]}"
+              f", forward + decode {ms:.1f} ms; boxes {tuple(boxes.shape)}, "
+              f"{int((scores > 0).sum())} scores above the threshold")
+        check(grids == [VISION_DET_RES // s for s in cfg.strides],
+              f"{cfg.name}: head grids {grids}")
+        check(bool(torch.isfinite(boxes).all()), f"{cfg.name}: non-finite "
+              f"boxes")
+        del params, outs
+
+
+def train_vision(arch: str, seed: int, profile: bool) -> None:
+    """``VISION_TRAIN_STEPS`` ``vision_train_step``s of ``arch``'s
+    ``full_config()`` (bf16, remat) at ``cls_224`` with ``adamw(lr=1e-3,
+    warmup_steps=10)``: ms a step, images/s, peak memory; the gradients at
+    the initial weights; the BN stats (ResNet); a checkpoint round trip
+    (ResNet-50, ConvNeXt-B)."""
+    import importlib
+    import tempfile
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.base import VISION_SHAPES
+    from repro_torch.models import vision as V
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").full_config()
+    spec = VISION_SHAPES["cls_224"]
+    b = spec.batch
+    dev = torch.device("cuda")
+    params = V.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                           device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batches = [{"images": torch.randn((b, spec.img_res, spec.img_res, 3),
+                                      generator=gen, device=dev),
+                "labels": torch.randint(0, cfg.n_classes, (b,), generator=gen,
+                                        device=dev, dtype=torch.int32)}
+               for _ in range(VISION_TRAIN_STEPS)]
+    print(f"vision train: {cfg.name}, bf16, remat={cfg.remat}, batch {b} x "
+          f"{spec.img_res}² (cls_224), adamw lr 1e-3 warmup 10")
+
+    # the gradients at the initial weights: every leaf finite, every
+    # trainable one non-zero; the BN stats' are 0 by construction (the
+    # loss reads the batch's statistics, not the running ones)
+    def loss_fn(p):
+        logits, _ = steps_mod.vision_apply(p, batches[0]["images"], cfg,
+                                           train=True)
+        return torch.nn.functional.cross_entropy(
+            logits, batches[0]["labels"].long())
+
+    _, grads = steps_mod.value_and_grad(loss_fn, params)
+    groups = vision_groups(grads)
+    bad = [k for k, g in groups if not bool(torch.isfinite(g).all())]
+    zero = [k for k, g in groups if not is_bn_stat(k)
+            and not bool((g != 0).any())]
+    stats = [k for k, g in groups if is_bn_stat(k)]
+    stat_nonzero = [k for k in stats if bool((dict(groups)[k] != 0).any())]
+    n_train = len(groups) - len(stats)
+    print(f"{cfg.name} gradients: {len(groups)} leaves finite"
+          f"{'' if not bad else f' except {bad}'}; {n_train - len(zero)} "
+          f"of {n_train} trainable leaves non-zero; {len(stats)} BN "
+          f"mean/var leaves zero by construction"
+          + (f" (non-zero: {stat_nonzero})" if stat_nonzero else ""))
+    check(not bad, f"{cfg.name}: non-finite gradients {bad}")
+    check(not zero, f"{cfg.name}: zero gradients in {zero}")
+    check(not stat_nonzero, f"{cfg.name}: BN stat gradients {stat_nonzero}")
+    del grads, groups
+
+    opt = opt_mod.adamw(lr=1e-3, warmup_steps=10)
+    step = steps_mod.vision_train_step(cfg, opt)
+    state = steps_mod.make_state(params, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        print(f"{cfg.name} train step {int(m['step'])}: {ms:.1f} ms, "
+              f"{b / ms * 1e3:.0f} images/s, loss {float(m['loss']):.6f}, "
+              f"grad norm {float(m['grad_norm']):.6f}, accuracy "
+              f"{float(m['accuracy']):.4f}")
+        check(math.isfinite(float(m["loss"]))
+              and math.isfinite(float(m["grad_norm"])),
+              f"{cfg.name}: non-finite loss or grad norm")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{cfg.name} train: batch {b}, peak memory {peak:.2f} GB")
+
+    if isinstance(cfg, V.ResNetConfig):
+        before = [t for k, t in vision_groups(params) if is_bn_stat(k)]
+        after = [t for k, t in vision_groups(state["params"])
+                 if is_bn_stat(k)]
+        moved = sum(not torch.equal(x, y) for x, y in zip(after, before))
+        held = [t.clone() for t in after]
+        steps_mod.vision_serve_step(cfg)(state["params"], batches[0])
+        same = sum(bool(torch.equal(bits(a), bits(h))) for a, h in zip(
+            [t for k, t in vision_groups(state["params"]) if is_bn_stat(k)],
+            held))
+        print(f"{cfg.name} BN running stats: {moved} of {len(after)} moved "
+              f"after {VISION_TRAIN_STEPS} train steps; {same} of "
+              f"{len(after)} bit-equal across a serve step")
+        check(moved == len(after), f"{cfg.name}: BN stats did not move")
+        check(same == len(after), f"{cfg.name}: a serve step changed the BN "
+              f"stats")
+
+    if arch in ("resnet_50", "convnext_b"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_vision_") as d:
+            mgr = CheckpointManager(d)
+            t = time.perf_counter()
+            mgr.save(VISION_TRAIN_STEPS, state)
+            template = steps_mod.make_state(V.init_params(
+                torch.Generator(device=dev).manual_seed(seed + 1), cfg,
+                device=dev), opt)
+            restored = mgr.restore(VISION_TRAIN_STEPS, template)
+            ms = (time.perf_counter() - t) * 1e3
+            got, want = pytree.leaves(restored), pytree.leaves(state)
+            same = sum(g.dtype == w.dtype and bool(torch.equal(bits(g),
+                                                               bits(w)))
+                       for g, w in zip(got, want))
+            nones = [k for k, v in enumerate(
+                restored["params"].get("downsample", [])) if v is None]
+            print(f"{cfg.name} checkpoint at step {VISION_TRAIN_STEPS}: "
+                  f"{mgr.manifest(VISION_TRAIN_STEPS)['n_leaves']} leaves, "
+                  f"{same} of {len(want)} restored bit for bit"
+                  + (f", downsample{nones} None" if nones else "")
+                  + f" ({ms:.0f} ms save and restore)")
+            check(same == len(want) == len(got),
+                  f"{cfg.name}: the restored state differs from the saved one")
+            if isinstance(cfg, V.ConvNeXtConfig):
+                check(nones == [0], f"{cfg.name}: downsample None at {nones}")
+            del restored, template
+    if profile:
+        profile_train_step(step, state, batches[-1], cfg.name)
+    del state, params, batches
+    torch.cuda.empty_cache()
+
+
 def run_serve_launcher() -> None:
     """The port's serve launcher (``repro_torch.launch.serve``) on its
     oracle pod: the async policy with pod-level allocation over virtual
@@ -2561,6 +2890,8 @@ def main() -> int:
     by_path["lm"] = run_lm_path(profile=profile)
     by_path["lm_moe"] = run_moe_path(profile=profile)
     by_path["lm_train"], by_path["detector_train"] = run_train_path(
+        profile=profile)
+    by_path["vision_serve"], by_path["vision_train"] = run_vision_path(
         profile=profile)
 
     kernels = []

@@ -9,7 +9,7 @@ Each ``repro_torch/configs/<arch_id>.py`` module exports:
     skipped (e.g. long_500k on pure full-attention LMs)
 
 ``get_arch(arch_id)`` returns an ``ArchSpec`` bundling these.  The port
-has the four LM archs; a vision or diffusion id raises
+has the four LM and the four vision archs; a diffusion id raises
 ``NotImplementedError`` until the slice that ports its family.
 """
 
@@ -37,11 +37,7 @@ ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
 # the families not ported yet, and the slice that ports each
 # (ROADMAP, queue 1, slice F)
-_UNPORTED = {
-    "flux_dev": "diffusion", "unet_sdxl": "diffusion",
-    "convnext_b": "vision", "resnet_152": "vision", "resnet_50": "vision",
-    "vit_b16": "vision",
-}
+_UNPORTED = {"flux_dev": "diffusion", "unet_sdxl": "diffusion"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +61,13 @@ LM_SHAPES = {
                             global_batch=128),
     "long_500k": ShapeSpec("long_500k", "decode", seq_len=524288,
                            global_batch=1),
+}
+
+VISION_SHAPES = {
+    "cls_224": ShapeSpec("cls_224", "train", img_res=224, batch=256),
+    "cls_384": ShapeSpec("cls_384", "train", img_res=384, batch=64),
+    "serve_b1": ShapeSpec("serve_b1", "serve", img_res=224, batch=1),
+    "serve_b128": ShapeSpec("serve_b128", "serve", img_res=224, batch=128),
 }
 
 

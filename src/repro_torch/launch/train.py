@@ -4,9 +4,10 @@
 Runs a reduced-config training loop (the arch's ``smoke_config()``) on
 one device: the synthetic token pipeline behind a prefetcher, AdamW with
 10 warmup steps, gradient clipping, async checkpointing with
-crash-restart.  It prints the reference launcher's lines.  The LM archs
-train; a vision or diffusion arch raises ``NotImplementedError`` until
-its slice is ported.
+crash-restart.  It prints the reference launcher's lines.  The LM and
+vision archs train (a vision batch is drawn from
+``np.random.default_rng(0)`` as the reference's is); a diffusion arch
+raises ``NotImplementedError`` until its slice is ported.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 100 --ckpt-dir /tmp/ckpt [--device cpu]
@@ -19,6 +20,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import pytree
@@ -27,15 +29,25 @@ from repro_torch.configs import base as cfgbase
 from repro_torch.data.pipeline import Prefetcher, lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as lm_mod
+from repro_torch.models import vision as vis_mod
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training import steps as steps_mod
 
 
-def make_batch_gen(arch, cfg, batch):
-    if arch.family != "lm":
-        raise NotImplementedError(f"the {arch.family} family trains with "
-                                  f"its slice, not yet")
-    return Prefetcher(lm_batches(cfg.vocab_size, batch, 32), depth=2)
+def make_batch_gen(arch, cfg, batch, rng):
+    if arch.family == "lm":
+        return Prefetcher(lm_batches(cfg.vocab_size, batch, 32), depth=2)
+
+    def vision_gen():
+        while True:
+            yield {
+                "images": rng.standard_normal(
+                    (batch, cfg.img_res, cfg.img_res, 3)).astype(np.float32),
+                "labels": rng.integers(0, cfg.n_classes, batch).astype(
+                    np.int32),
+            }
+
+    return Prefetcher(vision_gen(), depth=2)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -51,12 +63,19 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     arch = cfgbase.get_arch(args.arch)
+    if arch.family not in ("lm", "vision"):
+        raise NotImplementedError(f"the {arch.family} family trains with "
+                                  f"its slice, not yet")
     cfg = arch.smoke
     device = resolve_device(args.device)
     opt = opt_mod.adamw(lr=args.lr, warmup_steps=10)
-    params = lm_mod.init_params(torch.Generator().manual_seed(0), cfg,
-                                device=device)
-    step_fn = steps_mod.lm_train_step(cfg, opt)
+    gen = torch.Generator().manual_seed(0)
+    if arch.family == "lm":
+        params = lm_mod.init_params(gen, cfg, device=device)
+        step_fn = steps_mod.lm_train_step(cfg, opt)
+    else:
+        params = vis_mod.init_params(gen, cfg, device=device)
+        step_fn = steps_mod.vision_train_step(cfg, opt)
     state = steps_mod.make_state(params, opt)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
@@ -65,9 +84,10 @@ def main(argv: list[str] | None = None) -> None:
         state = mgr.restore(start, state)
         print(f"restored checkpoint at step {start}")
 
-    gen = make_batch_gen(arch, cfg, args.batch)
+    batches = make_batch_gen(arch, cfg, args.batch,
+                             np.random.default_rng(0))
     t0 = time.time()
-    for i, batch in zip(range(start, args.steps), gen):
+    for i, batch in zip(range(start, args.steps), batches):
         state, metrics = step_fn(state, pytree.tree_map(
             lambda v: torch.as_tensor(v, device=device), batch))
         if (i + 1) % 10 == 0 or i == start:

@@ -12,6 +12,10 @@ n_classes)``.  Inside :func:`apply` the activations are NCHW, since the
 convolutions are PyTorch's (left to cuDNN, as the reference leaves them
 to XLA).  Parameters keep the reference's dict structure with OIHW conv
 weights; :func:`from_jax_params` converts the reference's HWIO tree.
+
+:class:`BackboneDetectorConfig` mounts the same heads on a ResNet or a
+ConvNeXt backbone (``repro_torch.models.vision``, whose
+``from_jax_params`` converts such a detector's tree).
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import vision as V
 
 Tensor = torch.Tensor
 Params = dict
@@ -284,3 +290,82 @@ def flops_per_image(cfg: DetectorConfig) -> float:
         total += cfg.depth * res ** 2 * (half * half + 9 * half * half)
         c_prev = c
     return float(total * 2)
+
+
+# --------------------------------------------------------------------------
+# detection heads on the assigned vision backbones (beyond-paper ladder)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BackboneDetectorConfig:
+    """Anchor-free detection head mounted on a classification backbone:
+    the backbone's stride-8/16/32 pyramid levels feed the CSP detector's
+    per-scale heads (a 1x1 lateral to ``head_width``, a 3x3 conv, the
+    1x1 output), so the allocator sees extra (accuracy, latency) rungs.
+    """
+
+    name: str
+    backbone_cfg: Any  # vision.ResNetConfig | vision.ConvNeXtConfig
+    input_size: int
+    n_classes: int = 80
+    head_width: int = 128
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+
+    @property
+    def policy(self) -> L.DtypePolicy:
+        return L.DtypePolicy(self.param_dtype, self.compute_dtype)
+
+    @property
+    def strides(self) -> tuple[int, ...]:
+        return (8, 16, 32)
+
+
+def _backbone_feature_fn(cfg: BackboneDetectorConfig):
+    if isinstance(cfg.backbone_cfg, V.ResNetConfig):
+        return V.resnet_init, V.resnet_features
+    if isinstance(cfg.backbone_cfg, V.ConvNeXtConfig):
+        return V.convnext_init, V.convnext_features
+    raise TypeError(type(cfg.backbone_cfg))
+
+
+def backbone_detector_init(gen: torch.Generator,
+                           cfg: BackboneDetectorConfig,
+                           device: str | torch.device | None = None
+                           ) -> Params:
+    """Random backbone and head parameters in the reference's layout, on
+    ``device`` (the card unless the caller names another)."""
+    device = resolve_device(device)
+    init_fn, _ = _backbone_feature_fn(cfg)
+    backbone = init_fn(gen, cfg.backbone_cfg, device)
+    bb = cfg.backbone_cfg
+    if isinstance(bb, V.ResNetConfig):
+        chans = [bb.width * (2 ** i) * 4 for i in (1, 2, 3)]
+    else:
+        chans = list(bb.dims[1:])
+    dt, hw = cfg.param_dtype, cfg.head_width
+    heads = [{"lateral": _conv_bn_init(gen, 1, c, hw, dt, device),
+              "conv": _conv_bn_init(gen, 3, hw, hw, dt, device),
+              "out": L.init_conv(gen, 1, 1, hw, 5 + cfg.n_classes, dtype=dt,
+                                 device=device)}
+             for c in chans]
+    return {"backbone": backbone, "heads": heads}
+
+
+def backbone_detector_apply(params: Params, images: Tensor,
+                            cfg: BackboneDetectorConfig) -> list[Tensor]:
+    """images (B, S, S, 3) -> per-scale raw heads (B, S/stride,
+    S/stride, 5 + n_classes) at strides 8/16/32, finest first."""
+    _, feat_fn = _backbone_feature_fn(cfg)
+    pol = cfg.policy
+    feats, _ = feat_fn(params["backbone"], images, cfg.backbone_cfg,
+                       train=False)
+    outs = []
+    for f, hp in zip(feats[1:], params["heads"]):  # strides 8/16/32
+        # a contiguous NCHW copy, as :func:`apply` takes its input
+        h = _conv_bn(hp["lateral"], f.permute(0, 3, 1, 2).contiguous(), pol)
+        h = _conv_bn(hp["conv"], h, pol)
+        outs.append(L.conv2d(hp["out"], h, policy=pol).to(torch.float32)
+                    .permute(0, 2, 3, 1))
+    return outs

@@ -1,5 +1,5 @@
-"""The layers the CSP detector, the LM and the action head use (port of
-the matching subset of ``repro.models.layers``).
+"""The layers the CSP detector, the LM, the action head and the vision
+backbones use (port of the matching subset of ``repro.models.layers``).
 
 Params are plain nested dicts of tensors, as in the reference.  The
 public layout follows the reference too: activations are channel-last
@@ -138,6 +138,48 @@ def groupnorm(p: Params, x: Tensor, eps: float = 1e-5,
     return y.to(x.dtype)
 
 
+def init_batchnorm(d: int, dtype=torch.float32, device="cpu") -> Params:
+    """BatchNorm's affine params in ``dtype``, its running stats in
+    float32 (the reference's layout)."""
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device),
+            "mean": torch.zeros((d,), dtype=torch.float32, device=device),
+            "var": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def batchnorm(p: Params, x: Tensor, *, train: bool, eps: float = 1e-5,
+              momentum: float = 0.9) -> tuple[Tensor, Params]:
+    """BatchNorm over the channel axis of NCHW ``x``; returns (y, the
+    updated running stats), functionally, as the reference does.
+
+    In train mode ``y`` uses the batch's mean and population variance
+    (``jnp.var``; ``F.batch_norm`` keeps the unbiased one) and the new
+    stats are ``momentum * old + (1 - momentum) * batch``, in float32
+    and out of autograd's graph; in eval mode ``y`` uses the running
+    stats and ``p`` comes back as it is.  Nothing is updated in place,
+    so a remat recompute of the layer changes nothing."""
+    x32 = x.to(torch.float32)
+    if train:
+        dims = (0,) + tuple(range(2, x.dim()))
+        mu = torch.mean(x32, dim=dims)
+        var = torch.var(x32, dim=dims, correction=0)
+        new_stats = {
+            **p,
+            "mean": momentum * p["mean"].detach()
+            + (1 - momentum) * mu.detach(),
+            "var": momentum * p["var"].detach()
+            + (1 - momentum) * var.detach(),
+        }
+    else:
+        mu, var = p["mean"], p["var"]
+        new_stats = p
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    y = (x32 - mu.reshape(shape)) * torch.rsqrt(var.reshape(shape) + eps)
+    y = (y * p["scale"].to(torch.float32).reshape(shape)
+         + p["bias"].to(torch.float32).reshape(shape))
+    return y.to(x.dtype), new_stats
+
+
 # --------------------------------------------------------------------------
 # Convolutions
 # --------------------------------------------------------------------------
@@ -182,6 +224,23 @@ def conv2d(p: Params, x: Tensor, *, stride: int = 1, padding: str = "SAME",
     b = p["b"].to(policy.compute_dtype) if "b" in p else None
     return F.conv2d(x, p["w"].to(policy.compute_dtype), b, stride=stride,
                     padding=0, groups=groups)
+
+
+def max_pool(x: Tensor, window: int, stride: int) -> Tensor:
+    """Max pooling of NCHW ``x`` with XLA's ``"SAME"`` padding by
+    ``-inf``: the odd extra pad goes to the bottom and right
+    (``F.max_pool2d``'s ``padding=`` is symmetric and would shift every
+    window of a stride-2 pool on an even input by one)."""
+    top, bottom = _same_pads(x.shape[2], window, stride)
+    left, right = _same_pads(x.shape[3], window, stride)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=-math.inf)
+    return F.max_pool2d(x, window, stride, padding=0)
+
+
+def avg_pool_global(x: Tensor) -> Tensor:
+    """Mean over the spatial axes of NCHW ``x``: (N, C)."""
+    return torch.mean(x, dim=(2, 3))
 
 
 def upsample_nearest(x: Tensor, factor: int = 2) -> Tensor:

@@ -25,6 +25,8 @@ class TreeDef:
         def fmt(n):
             if n is _LEAF:
                 return "*"
+            if n is None:
+                return "None"
             if isinstance(n, dict):
                 return "{" + ", ".join(f"{k!r}: {fmt(v)}"
                                        for k, v in n.items()) + "}"
@@ -40,6 +42,8 @@ class TreeDef:
         def build(n):
             if n is _LEAF:
                 return next(it)
+            if n is None:
+                return None
             if isinstance(n, dict):
                 return {k: build(v) for k, v in n.items()}
             if isinstance(n, list):
@@ -58,6 +62,9 @@ class TreeDef:
         def walk(n, t):
             if n is _LEAF:
                 out.append(t)
+            elif n is None:
+                if t is not None:
+                    raise ValueError(f"expected None, got {type(t).__name__}")
             elif isinstance(n, dict):
                 if sorted(t) != list(n):
                     raise ValueError(f"keys {sorted(t)} != {list(n)}")
@@ -81,6 +88,8 @@ def flatten(tree, is_leaf: Callable[[Any], bool] | None = None
         if is_leaf is not None and is_leaf(t):
             leaves.append(t)
             return _LEAF
+        if t is None:
+            return None
         if isinstance(t, dict):
             return {k: walk(t[k]) for k in sorted(t)}
         if isinstance(t, list):

@@ -1,4 +1,4 @@
-"""The LM and detector train and serve steps (port of
+"""The LM, vision and detector train and serve steps (port of
 ``repro.training.steps``).
 
 Each builder returns ``step(state, batch) -> (state, metrics)`` (train)
@@ -24,6 +24,7 @@ import torch
 from repro_torch import pytree
 from repro_torch.models import detector as det_mod
 from repro_torch.models import transformer as lm_mod
+from repro_torch.models import vision as vis_mod
 from repro_torch.training import optimizer as opt_mod
 
 
@@ -33,26 +34,35 @@ def make_state(params, optimizer: opt_mod.Optimizer):
                                 device=pytree.device(params))}
 
 
-def _finish(state, optimizer, grads, loss):
+def _finish(state, optimizer, grads, loss, extra=None):
     grads, gnorm = opt_mod.clip_by_global_norm(grads, 1.0)
     new_params, new_opt = optimizer.update(grads, state["params"],
                                            state["opt"])
     metrics = {"loss": loss, "grad_norm": gnorm, "step": state["step"] + 1}
+    if extra:
+        metrics.update(extra)
     return ({"params": new_params, "opt": new_opt,
              "step": state["step"] + 1}, metrics)
 
 
-def value_and_grad(loss_fn: Callable, params):
+def value_and_grad(loss_fn: Callable, params, has_aux: bool = False):
     """(``loss_fn(params)`` detached, its gradient as a tree like
     ``params``); a parameter the loss does not reach gets zeros, as
-    ``jax.grad`` gives."""
+    ``jax.grad`` gives.  With ``has_aux``, ``loss_fn`` returns ``(loss,
+    aux)`` and the first item is ``(loss, aux)``, aux's tensors detached,
+    as ``jax.value_and_grad(..., has_aux=True)`` gives."""
     leaves, treedef = pytree.flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        loss = loss_fn(treedef.unflatten(live))
+        out = loss_fn(treedef.unflatten(live))
+        loss, aux = out if has_aux else (out, None)
         grads = torch.autograd.grad(loss, live, allow_unused=True,
                                     materialize_grads=True)
-    return loss.detach(), treedef.unflatten(list(grads))
+    grads = treedef.unflatten(list(grads))
+    if has_aux:
+        return (loss.detach(), pytree.tree_map(torch.Tensor.detach, aux)), \
+            grads
+    return loss.detach(), grads
 
 
 def _train_step(loss_fn: Callable, optimizer: opt_mod.Optimizer
@@ -102,6 +112,71 @@ def lm_decode_step(cfg: lm_mod.TransformerConfig,
                                                cfg, routes)
         return {"logits": logits, "k": new_cache.k, "v": new_cache.v,
                 "length": new_cache.length}
+
+    return step
+
+
+# -- vision -------------------------------------------------------------------
+
+_VIS_APPLY = {
+    vis_mod.ViTConfig: vis_mod.vit_apply,
+    vis_mod.ConvNeXtConfig: vis_mod.convnext_apply,
+    vis_mod.ResNetConfig: vis_mod.resnet_apply,
+}
+
+
+def vision_apply(params, images, cfg, train=False):
+    return _VIS_APPLY[type(cfg)](params, images, cfg, train)
+
+
+def vision_train_step(cfg, optimizer: opt_mod.Optimizer) -> Callable:
+    """batch ``{"images": (B, H, W, 3), "labels": (B,) integer}`` ->
+    (state, ``{"loss", "grad_norm", "step", "accuracy"}``).  The forward
+    runs in train mode; a ResNet's state then takes its batchnorm
+    running stats from the forward's refreshed tree
+    (:func:`_merge_bn_stats`: their gradients are 0, as the loss reads
+    the batch's stats, so AdamW leaves them as they were)."""
+    def loss_fn(p, batch):
+        logits, new_p = vision_apply(p, batch["images"], cfg, train=True)
+        labels = batch["labels"].long()
+        ll = torch.log_softmax(logits, dim=-1)
+        loss = -torch.mean(ll.gather(-1, labels[:, None]))
+        acc = torch.mean((logits.argmax(-1) == labels).to(torch.float32))
+        return loss, (acc, new_p)
+
+    def step(state, batch):
+        (loss, (acc, new_p)), grads = value_and_grad(
+            lambda p: loss_fn(p, batch), state["params"], has_aux=True)
+        with torch.no_grad():
+            new_state, metrics = _finish(state, optimizer, grads, loss,
+                                         {"accuracy": acc})
+        if isinstance(cfg, vis_mod.ResNetConfig):
+            new_state["params"] = _merge_bn_stats(new_state["params"], new_p)
+        return new_state, metrics
+
+    return step
+
+
+def _merge_bn_stats(trained, updated):
+    """Take 'mean'/'var' leaves from ``updated``, everything else trained."""
+
+    def walk(t, u):
+        if isinstance(t, dict):
+            return {k: (u[k] if k in ("mean", "var") else walk(t[k], u[k]))
+                    for k in t}
+        if isinstance(t, list):
+            return [walk(a, b) for a, b in zip(t, u)]
+        return t
+
+    return walk(trained, updated)
+
+
+def vision_serve_step(cfg) -> Callable:
+    """batch ``{"images"}`` -> ``{"logits": (B, n_classes) float32}``."""
+    @torch.no_grad()
+    def step(params, batch):
+        logits, _ = vision_apply(params, batch["images"], cfg, train=False)
+        return {"logits": logits}
 
     return step
 

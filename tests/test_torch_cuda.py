@@ -23,6 +23,14 @@ TF32 off (loss and grad norm rtol 1e-5, the parameters as
 loss rtol 2^-6, each gradient leaf's cosine with the CPU's at least 0.99,
 since a router logit one bf16 ulp apart can move a token to another
 expert).
+
+The vision family (no kernel: its attention is the plain one, its
+convolutions cuDNN's): ``max_pool`` on the card equals the CPU's exactly,
+``batchnorm`` within atol 1e-5 and rtol 1e-5 (float32 batch statistics
+summed in another order); a ResNet and a ConvNeXt ``vision_train_step``
+at their smoke configs, float32 with TF32 off, against the CPU's: loss
+and grad norm rtol 1e-4, accuracy exactly, the parameters as two AdamW
+runs above, the batchnorm running stats atol 1e-5.
 """
 
 from __future__ import annotations
@@ -53,10 +61,14 @@ from repro_torch.kernels.sphiou.ref import (sphiou_ref_batch,
 from repro_torch.configs import mixtral_8x22b as tmixtral
 from repro_torch.configs import qwen3_moe_235b_a22b as tqwen
 from repro_torch.models import detector as tdet
+from repro_torch.models import layers as tlayers
+from repro_torch.models import vision as tvis
 from repro_torch.models import transformer as tlm
 from repro_torch.serving.scheduler import TorchDetectorBackend
 from repro_torch import pytree
 from repro_torch.checkpoint.checkpoint import CheckpointManager
+from repro_torch.configs import convnext_b as tconvnext
+from repro_torch.configs import resnet_50 as tresnet50
 from repro_torch.configs import smollm_135m as tsmol
 from repro_torch.data.pipeline import lm_batches, rasterize_targets
 from repro_torch.training import optimizer as topt
@@ -884,3 +896,66 @@ def test_cuda_flash_attention_refuses_autograd(cuda):
     assert _build.launch_counts() == {}
     with torch.no_grad():
         assert tattn.flash_attention(q, q, q).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [8, 15, 112])
+def test_cuda_max_pool_equals_cpu(cuda, size):
+    x = _erp(size, (2, 5, size, size))
+    host = tlayers.max_pool(x, 3, 2)
+    card = tlayers.max_pool(x.to(cuda), 3, 2)
+    assert torch.equal(card.cpu(), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_cuda_batchnorm_matches_cpu(cuda, train):
+    rng = np.random.default_rng(4)
+    p = {k: torch.from_numpy(rng.random(6).astype(np.float32) + 0.5)
+         for k in ("scale", "bias", "mean", "var")}
+    x = torch.from_numpy(rng.standard_normal((4, 6, 9, 9)).astype(
+        np.float32) * 2 + 1)
+    y_h, s_h = tlayers.batchnorm(p, x, train=train)
+    y_c, s_c = tlayers.batchnorm(_to(p, cuda), x.to(cuda), train=train)
+    torch.testing.assert_close(y_c.cpu(), y_h, atol=1e-5, rtol=1e-5)
+    for k in ("mean", "var"):
+        assert s_c[k].is_cuda and s_c[k].dtype == torch.float32
+        torch.testing.assert_close(s_c[k].cpu(), s_h[k], atol=1e-5, rtol=0)
+
+
+def _bn_leaves(tree):
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                (out.append(v) if k in ("mean", "var") else walk(v))
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+    walk(tree)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [tresnet50, tconvnext])
+def test_cuda_vision_train_step_matches_cpu(cuda, fp32, mod):
+    cfg = mod.smoke_config()
+    params = tvis.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    rng = np.random.default_rng(6)
+    batch = {"images": rng.standard_normal(
+        (4, cfg.img_res, cfg.img_res, 3)).astype(np.float32),
+        "labels": rng.integers(0, cfg.n_classes, 4).astype(np.int32)}
+    opt = topt.adamw(lr=1e-3)
+    step = tsteps.vision_train_step(cfg, opt)
+    host, hstate = _two_steps(step, params, opt, [batch], "cpu")
+    card, cstate = _two_steps(step, params, opt, [batch], cuda)
+    for k in ("loss", "grad_norm"):
+        assert card[0][k] == pytest.approx(host[0][k], rel=1e-4)
+    assert card[0]["accuracy"] == host[0]["accuracy"]
+    _assert_adamw_close(cstate["params"], hstate["params"], 1e-3, 1)
+    for c, h in zip(_bn_leaves(cstate["params"]),
+                    _bn_leaves(hstate["params"])):
+        assert c.is_cuda
+        torch.testing.assert_close(c.cpu(), h, atol=1e-5, rtol=0)

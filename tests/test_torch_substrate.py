@@ -30,6 +30,7 @@ from repro.data import pipeline as jpipe
 from repro.data.synthetic import make_video as jmake_video
 from repro.models import detector as JD
 from repro.models import transformer as JT
+from repro.models import vision as JV
 from repro.training import compression as jcomp
 from repro.training import optimizer as JO
 from repro.training import steps as JS
@@ -41,6 +42,7 @@ from repro_torch.data.pipeline import Prefetcher, lm_batches
 from repro_torch.data.synthetic import make_video
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import transformer as TT
+from repro_torch.models import vision as TV
 from repro_torch.training import compression as comp
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training import steps as TS
@@ -376,9 +378,13 @@ def test_arch_registry_matches_reference():
         assert t.smoke == TT.from_jax_config(j.smoke)
         assert {k: dataclasses.asdict(v) for k, v in t.shapes.items()} \
             == {k: dataclasses.asdict(v) for k, v in j.shapes.items()}
-    for arch_id, family in (("vit-b16", "vision"), ("resnet_50", "vision"),
-                            ("flux-dev", "diffusion")):
-        with pytest.raises(NotImplementedError, match=family):
+    for arch_id in ("vit-b16", "resnet_50"):
+        t, j = tbase.get_arch(arch_id), jbase.get_arch(arch_id)
+        assert (t.arch_id, t.family, t.skip) == (j.arch_id, j.family, j.skip)
+        assert t.config == TV.from_jax_config(j.config)
+        assert t.smoke == TV.from_jax_config(j.smoke)
+    for arch_id in ("flux-dev", "unet_sdxl"):
+        with pytest.raises(NotImplementedError, match="diffusion"):
             tbase.get_arch(arch_id)
     with pytest.raises(KeyError):
         tbase.get_arch("no-such-arch")
@@ -404,5 +410,31 @@ def test_train_launcher_trains_and_restarts(tmp_path):
     lines = out.getvalue().splitlines()
     assert lines[0] == "restored checkpoint at step 20"
     assert lines[1].startswith("step   21 loss=")
-    with pytest.raises(NotImplementedError, match="vision"):
-        tlaunch.main(["--arch", "vit-b16", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="diffusion"):
+        tlaunch.main(["--arch", "flux-dev", "--device", "cpu"])
+
+
+def test_train_launcher_trains_and_restarts_resnet(tmp_path):
+    """``--arch resnet-50`` trains its smoke config on the CPU (batch
+    norm stats in the checkpoint) and restarts from the checkpoint."""
+    argv = ["--arch", "resnet-50", "--steps", "4", "--ckpt-every", "2",
+            "--batch", "2", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    out = io.StringIO()
+    with redirect_stdout(out):
+        tlaunch.main(argv)
+    lines = out.getvalue().splitlines()
+    assert len(lines) == 2 and lines[0].startswith("step    1 loss=")
+    assert " gnorm=" in lines[0] and lines[-1] == "done"
+    assert CheckpointManager(tmp_path).steps() == [2, 4]
+    jstate = jax.eval_shape(lambda: JS.make_state(JV.resnet_init(
+        jax.random.PRNGKey(0), jbase.get_arch("resnet_50").smoke),
+        JO.adamw()))
+    assert json.loads((tmp_path / "step_4/manifest.json").read_text())[
+        "n_leaves"] == len(jax.tree.leaves(jstate))
+    out = io.StringIO()
+    with redirect_stdout(out):
+        tlaunch.main(argv[:3] + ["5"] + argv[4:])
+    lines = out.getvalue().splitlines()
+    assert lines[0] == "restored checkpoint at step 4"
+    assert lines[1].startswith("step    5 loss=")
+    assert lines[-1] == "done"
