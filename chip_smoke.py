@@ -168,7 +168,31 @@ Phases, in order; any failure exits non-zero:
    ResNet-50 and ConvNeXt-B states (batchnorm stats; ConvNeXt's ``None``
    first downsample) restored from a ``CheckpointManager`` bit for bit.
    Launch counts are set to 0 before the serve runs and before the train
-   runs, and read after each: none may have launched a kernel.
+   runs, and read after each: none may have launched a kernel;
+11. the diffusion family (no kernel: its attention is the plain ``_mha``,
+   its convolutions and norms cuDNN's and PyTorch's): flux-dev and
+   unet-sdxl at their published widths (``full_config()``, bf16, seeded
+   random weights on the card; flux's AdaLN-Zero modulation drawn
+   non-zero, ``perturb_modulation``, since its zeros make every block the
+   identity).  Each runs a whole ``gen_fast`` sample through
+   ``diffusion_denoise_step`` (16 x 64² latents, 4 Euler or DDIM steps
+   after a warm-up step) and ``DIFF_GEN1024_STEPS`` of ``gen_1024``'s 50
+   steps (4 x 128²): ms a step, samples/s, peak memory and the sampled
+   latents' sha256; then its bf16 step is held to the float32 policy's on
+   the same weights within ``DIFF_BF16_RTOL`` (relative norm of the
+   step's change of the latents; flux on its first ``FLUX_POLICY_BLOCKS``),
+   a limit that the control (the float32 step at another timestep) must
+   fail.  Then each trains ``DIFF_TRAIN_STEPS`` ``diffusion_train_step``s
+   (remat, ``adamw(lr=1e-3, warmup_steps=10)``) at ``train_256`` (32²
+   latents) from the served weights, flux on its first
+   ``FLUX_TRAIN_BLOCKS`` and both at ``DIFF_TRAIN_BATCH``: ms a step,
+   images/s, loss, grad norm, peak memory.  Checks: at the initial
+   weights every gradient leaf finite and non-zero (none is zero by
+   construction once the modulation is non-zero); the UNet's trained
+   parameters and step (457 leaves, its 5 ``None`` attention entries)
+   restored from a ``CheckpointManager`` bit for bit.  Launch counts are
+   set to 0 before each arch's serve run and before its train run: none
+   may have launched a kernel.
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -180,7 +204,8 @@ suppression), for the same use; it prints no result line either.
 
 ``--profile`` also profiles the last pod tick, the last mixed tick, one
 LM prefill step and four decode steps of smollm-135m and of mixtral-8x22b,
-and one train step of smollm-135m, of yolo-p6-1280 and of each vision
+one train step of smollm-135m, of yolo-p6-1280 and of each vision arch,
+and one ``gen_fast`` denoise step and one train step of each diffusion
 arch:
 the card's busy share of each, its host-to-device copies, its top kernels
 and the frame loop's kernels among them.
@@ -188,7 +213,8 @@ and the frame loop's kernels among them.
 The last lines are the kernels' JSON record (with each kernel's launches
 by path: the frame loop of phase 5, the mixed pod of phase 6, the LM of
 phase 7, the MoE LM of phase 8, the LM's and the detector's training of
-phase 9 and the vision serve and train paths of phase 10, all four 0),
+phase 9, the vision serve and train paths of phase 10 and the diffusion
+serve and train paths of phase 11, all six 0),
 the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
@@ -2433,16 +2459,7 @@ def repeat_detector_step(step, state, batch, what: str) -> None:
 def profile_train_step(step, state, batch, what: str) -> None:
     """One train step under the profiler: the card's busy share and its
     top kernels."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    print_profile(prof, wall, f"one {what} train step", top=12)
+    profile_call(lambda: step(state, batch), f"one {what} train step")
 
 
 def profile_lm(prefill, decode, params, tokens, n_dec: int = 4) -> None:
@@ -2801,6 +2818,366 @@ def train_vision(arch: str, seed: int, profile: bool) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 11: the diffusion family
+# --------------------------------------------------------------------------
+
+# flux-dev and unet-sdxl at their published widths (bf16, seeded weights)
+DIFF_ARCHS = ("flux_dev", "unet_sdxl")
+# gen_1024 runs this many of its 50 sampler steps (each step is the same
+# work); gen_fast runs its 4 whole, after one warm-up step
+DIFF_GEN1024_STEPS = 2
+# flux at full depth does not train on one card: its bf16 params and
+# grads and AdamW's float32 moments take 143 GB.  It trains at the
+# published width on the first FLUX_TRAIN_BLOCKS (double, single) blocks
+# of the served weights, and checks its precision policy on the first
+# FLUX_POLICY_BLOCKS (a float32 copy of all 57 would take 47.5 GB).  A
+# train step's AdamW update holds the old and the new state, the bf16
+# gradients and their float32 clipped copies at once, 26 bytes a
+# parameter whatever the batch: on 4 double and 8 single blocks (2.54B)
+# that peak is ~66 GB before the update's temporaries, on 3 and 6 (1.91B)
+# ~50 GB, which leaves the batch room under ~70 GB
+FLUX_TRAIN_BLOCKS, FLUX_POLICY_BLOCKS = (3, 6), (2, 4)
+# train_256's batch of 256 as each arch trains it (flux's cut so that the
+# peak stays under ~70 GB)
+DIFF_TRAIN_BATCH = {"flux_dev": 64, "unet_sdxl": 256}
+DIFF_TRAIN_STEPS = 3
+# the bf16 denoise step against the float32 policy's on the same weights
+# and inputs: |d16 - d32| / |d32|, d the step's change of the latents
+# (Frobenius norms), TF32 off; the control is the float32 step's change
+# at half the timestep.  On the CPU at cut widths (flux d_model 128 and
+# 512 on 2 double and 3 single blocks; the UNet at ch 64 and 128, depths
+# (1, 2, 3); 2 x 32² latents) it read 0.0068 (flux) and 0.0055-0.0065
+# (UNet), the controls 0.50 and 0.75-0.76
+DIFF_BF16_RTOL = 0.05
+
+
+def run_diffusion_path(profile: bool = False) -> tuple[dict, dict]:
+    """Phase 11; returns the launches of the diffusion serve path and of
+    the diffusion train path."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    serve, train = {}, {}
+    for i, arch in enumerate(DIFF_ARCHS):
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        # the served model, which the train run takes over (it pops the
+        # parameters, so that no reference here keeps them alive)
+        held = serve_diffusion(arch, seed=70 + i, profile=profile)
+        for k, v in _build.launch_counts().items():
+            serve[k] = serve.get(k, 0) + v
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        train_diffusion(arch, held, seed=80 + i, profile=profile)
+        for k, v in _build.launch_counts().items():
+            train[k] = train.get(k, 0) + v
+    torch.cuda.empty_cache()
+    print(f"diffusion launches: serve {serve}, train {train}")
+    check(not serve and not train, "a diffusion path launched a kernel: its "
+          "attention is the plain _mha and its convolutions cuDNN's")
+    return serve, train
+
+
+def diffusion_inputs(cfg, b: int, res: int, seed: int) -> dict:
+    """Latents (b, res, res, C) and the conditioning (``ctx`` and
+    ``pooled`` for flux, ``ctx`` and ``add_emb`` for the UNet), drawn on
+    the card from ``seed``."""
+    import torch
+
+    from repro_torch.models import diffusion as D
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    out = {"latents": randn(b, res, res, cfg.latent_ch)}
+    if isinstance(cfg, D.MMDiTConfig):
+        out.update(ctx=randn(b, cfg.n_ctx_tokens, cfg.d_ctx),
+                   pooled=randn(b, cfg.d_pooled))
+    else:
+        out.update(ctx=randn(b, cfg.n_ctx_tokens, cfg.ctx_dim),
+                   add_emb=randn(b, cfg.d_add))
+    return out
+
+
+def denoise_batch(cfg, inputs: dict, latents, t: float, dt: float) -> dict:
+    """A denoise step's batch from ``t`` to ``t - dt``: flux's Euler step
+    (t in [0, 1], guidance 3.5) or the UNet's DDIM step (t in [0, 1000),
+    ``t_prev`` floored at 0)."""
+    import torch
+
+    from repro_torch.models import diffusion as D
+
+    def full(v):
+        return torch.full((latents.shape[0],), v, device=latents.device)
+
+    batch = {**inputs, "latents": latents, "t": full(t)}
+    if isinstance(cfg, D.MMDiTConfig):
+        batch.update(dt=full(dt), guidance=full(3.5))
+    else:
+        batch["t_prev"] = full(max(t - dt, 0.0))
+    return batch
+
+
+def flux_blocks(params, n_double: int, n_single: int):
+    """A flux tree cut to its first ``n_double`` and ``n_single`` blocks
+    (views of the stacked leaves)."""
+    from repro_torch import pytree
+
+    return {**params,
+            "double": pytree.tree_map(lambda t: t[:n_double],
+                                      params["double"]),
+            "single": pytree.tree_map(lambda t: t[:n_single],
+                                      params["single"])}
+
+
+def sample(step, params, cfg, inputs: dict, t0: float, dt: float,
+           steps: int) -> tuple:
+    """``steps`` sampler steps of ``dt`` from ``inputs``' latents at
+    ``t0``; returns (latents, each step's ms)."""
+    import torch
+
+    x, times = inputs["latents"], []
+    for i in range(steps):
+        batch = denoise_batch(cfg, inputs, x, t0 - i * dt, dt)
+        start = time.perf_counter()
+        x = step(params, batch)["latents"]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return x, times
+
+
+def serve_diffusion(arch: str, seed: int, profile: bool) -> tuple:
+    """``diffusion_denoise_step`` of ``arch``'s ``full_config()``: a whole
+    ``gen_fast`` sample, ``DIFF_GEN1024_STEPS`` steps at ``gen_1024``,
+    then the bf16 step against the float32 policy's.  Returns ``{"cfg",
+    "params"}`` for the train run."""
+    import dataclasses
+    import hashlib
+    import importlib
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.configs.base import DIFFUSION_SHAPES
+    from repro_torch.models import diffusion as D
+    from repro_torch.training import steps as steps_mod
+
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    cfg = mod.full_config()
+    is_flux = isinstance(cfg, D.MMDiTConfig)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = time.perf_counter()
+    params = D.init_params(gen, cfg, device=dev)
+    if is_flux:  # AdaLN-Zero's zeros would make every block the identity
+        params = D.perturb_modulation(params, gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pytree.leaves(params))
+    print(f"diffusion serve: {cfg.name} ({n / 1e9:.3f}B parameters in "
+          f"{len(pytree.leaves(params))} leaves, bf16"
+          + (", modulation drawn non-zero" if is_flux else "")
+          + f"; init on the card {(time.perf_counter() - t):.1f} s)")
+    step = steps_mod.diffusion_denoise_step(cfg)
+    t0 = 1.0 if is_flux else 999.0  # from noise down to 0
+
+    for shape in ("gen_fast", "gen_1024"):
+        spec = DIFFUSION_SHAPES[shape]
+        res = spec.img_res // mod.VAE_FACTOR
+        inputs = diffusion_inputs(cfg, spec.batch, res, seed)
+        dt = t0 / spec.steps
+        steps = spec.steps if shape == "gen_fast" else DIFF_GEN1024_STEPS
+        sample(step, params, cfg, inputs, t0, dt, 1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        x, times = sample(step, params, cfg, inputs, t0, dt, steps)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(tuple(x.shape) == tuple(inputs["latents"].shape)
+              and x.dtype == torch.float32 and bool(torch.isfinite(x).all()),
+              f"{cfg.name} {shape}: latents {tuple(x.shape)} {x.dtype}")
+        ms = sum(times) / len(times)
+        digest = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+        whole = "whole sample" if steps == spec.steps else \
+            f"{steps} of its {spec.steps} steps"
+        print(f"{cfg.name} {shape} ({spec.batch} x {res}² latents, {whole}): "
+              f"{', '.join(f'{v:.1f}' for v in times)} ms a step (mean "
+              f"{ms:.1f}), {spec.batch / (ms * spec.steps) * 1e3:.3f} "
+              f"samples/s at {spec.steps} steps, peak memory {peak:.2f} GB, "
+              f"latents sha256 {digest}")
+        if profile and shape == "gen_fast":
+            batch = denoise_batch(cfg, inputs, x, dt, dt)
+            profile_call(lambda: step(params, batch),
+                         f"one {cfg.name} {shape} denoise step")
+        del inputs, x
+
+    # the bf16 step against the float32 policy's on the same weights
+    pcfg, pparams = cfg, params
+    if is_flux:
+        nd, ns = FLUX_POLICY_BLOCKS
+        pcfg = dataclasses.replace(cfg, n_double_blocks=nd,
+                                   n_single_blocks=ns)
+        pparams = flux_blocks(params, nd, ns)
+    cfg32 = dataclasses.replace(pcfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = pytree.tree_map(lambda p: p.float(), pparams)
+    step16 = steps_mod.diffusion_denoise_step(pcfg)
+    step32 = steps_mod.diffusion_denoise_step(cfg32)
+    tm, dt = t0 / 2, t0 / 4
+    spec = DIFFUSION_SHAPES["gen_fast"]
+    inputs = diffusion_inputs(cfg, 2, spec.img_res // mod.VAE_FACTOR,
+                              seed + 1)
+    x = inputs["latents"]
+    batch = denoise_batch(cfg, inputs, x, tm, dt)
+    d16 = step16(pparams, batch)["latents"] - x
+    d32 = step32(params32, batch)["latents"] - x
+    other = denoise_batch(cfg, inputs, x, tm / 2, dt / 2)
+    dctl = step32(params32, other)["latents"] - x
+    err = float((d16 - d32).norm() / d32.norm())
+    ctl = float((dctl - d32).norm() / d32.norm())
+    cut = (f"{pcfg.n_double_blocks} double and {pcfg.n_single_blocks} "
+           f"single blocks, " if is_flux else "full depth, ")
+    print(f"{cfg.name} bf16 denoise step against the float32 policy's ({cut}"
+          f"2 x {x.shape[1]}² latents at t {tm}, TF32 off): |d16 - d32| / "
+          f"|d32| {err:.4g} (limit {DIFF_BF16_RTOL}); the control, the "
+          f"float32 step at t {tm / 2}, {ctl:.4g}")
+    check(err <= DIFF_BF16_RTOL, f"{cfg.name}: the bf16 denoise step {err} "
+          f"from the float32 policy's")
+    check(ctl > DIFF_BF16_RTOL, f"{cfg.name}: the control passed the bf16 "
+          f"check: {ctl}")
+    del params32, pparams, d16, d32, dctl
+    return {"cfg": cfg, "params": params}
+
+
+def train_diffusion(arch: str, held: dict, seed: int, profile: bool
+                    ) -> None:
+    """``DIFF_TRAIN_STEPS`` ``diffusion_train_step``s (remat, ``adamw(lr=
+    1e-3, warmup_steps=10)``) at ``train_256`` from the served weights
+    (flux cut to ``FLUX_TRAIN_BLOCKS``): ms a step, images/s, loss, grad
+    norm, peak memory; the gradients at the initial weights; for the UNet
+    a checkpoint round trip of the trained parameters.  ``held`` is
+    :func:`serve_diffusion`'s result; its parameters are popped."""
+    import dataclasses
+    import importlib
+    import tempfile
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.base import DIFFUSION_SHAPES
+    from repro_torch.models import diffusion as D
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    cfg, params = held["cfg"], held.pop("params")
+    is_flux = isinstance(cfg, D.MMDiTConfig)
+    dev = torch.device("cuda")
+    if is_flux:  # its own copy of the kept blocks: the rest is freed
+        nd, ns = FLUX_TRAIN_BLOCKS
+        cfg = dataclasses.replace(cfg, n_double_blocks=nd, n_single_blocks=ns)
+        params = pytree.tree_map(torch.clone, flux_blocks(params, nd, ns))
+        torch.cuda.empty_cache()
+    spec = DIFFUSION_SHAPES["train_256"]
+    b, res = DIFF_TRAIN_BATCH[arch], spec.img_res // mod.VAE_FACTOR
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batches = [{**diffusion_inputs(cfg, b, res, seed + i),
+                "seed": torch.randint(0, 2 ** 31, (), generator=gen,
+                                      device=dev)}
+               for i in range(DIFF_TRAIN_STEPS)]
+    n = sum(p.numel() for p in pytree.leaves(params))
+    cut = (f"{cfg.n_double_blocks} double and {cfg.n_single_blocks} single "
+           f"blocks of the served weights, " if is_flux else "")
+    print(f"diffusion train: {cfg.name} ({cut}{n / 1e9:.3f}B parameters, "
+          f"bf16, remat={cfg.remat}), batch {b} x {res}² latents (train_256"
+          f"{'' if b == spec.batch else f'; its batch {spec.batch} cut to {b}'}"
+          f"), adamw lr 1e-3 warmup 10")
+
+    # the gradients at the initial weights: every leaf finite, every one
+    # non-zero (flux's modulation is drawn non-zero, so no block is gated
+    # off: no leaf is zero by construction)
+    loss_fn = D.flux_rf_loss if is_flux else D.unet_eps_loss
+    _, grads = steps_mod.value_and_grad(
+        lambda p: loss_fn(p, batches[0], cfg, 0), params)
+    groups = vision_groups(grads)
+    bad = [k for k, g in groups if not bool(torch.isfinite(g).all())]
+    zero = [k for k, g in groups if not bool((g != 0).any())]
+    print(f"{cfg.name} gradients: {len(groups)} leaves, "
+          f"{len(groups) - len(bad)} finite, {len(groups) - len(zero)} "
+          f"non-zero; 0 zero by construction")
+    check(not bad, f"{cfg.name}: non-finite gradients {bad}")
+    check(not zero, f"{cfg.name}: zero gradients in {zero}")
+    del grads, groups
+
+    opt = opt_mod.adamw(lr=1e-3, warmup_steps=10)
+    step = steps_mod.diffusion_train_step(cfg, opt)
+    state = steps_mod.make_state(params, opt)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the loop here rebinds the one reference to the state, so that a
+    # step's input state is freed once the next step has its output
+    for batch in batches:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        print(f"{cfg.name} train step {int(m['step'])}: {ms:.1f} ms, "
+              f"{b / ms * 1e3:.1f} images/s, loss {loss:.6f}, grad norm "
+              f"{gnorm:.6f}")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"{cfg.name}: non-finite loss or grad norm")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{cfg.name} train: batch {b}, peak memory {peak:.2f} GB")
+
+    if not is_flux:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_diffusion_") as d:
+            mgr = CheckpointManager(d)
+            saved = {"params": state["params"], "step": state["step"]}
+            t = time.perf_counter()
+            mgr.save(DIFF_TRAIN_STEPS, saved)
+            restored = mgr.restore(DIFF_TRAIN_STEPS, saved)
+            ms = (time.perf_counter() - t) * 1e3
+            got, want = pytree.leaves(restored), pytree.leaves(saved)
+            same = sum(g.dtype == w.dtype and bool(torch.equal(bits(g),
+                                                               bits(w)))
+                       for g, w in zip(got, want))
+            nones = sum(v is None for lv in restored["params"]["down"]
+                        + restored["params"]["up"] for v in lv["attn"])
+            print(f"{cfg.name} checkpoint at step {DIFF_TRAIN_STEPS} (the "
+                  f"parameters and the step): "
+                  f"{mgr.manifest(DIFF_TRAIN_STEPS)['n_leaves']} leaves, "
+                  f"{same} of {len(want)} restored bit for bit, {nones} None "
+                  f"attention entries kept ({ms:.0f} ms save and restore)")
+            check(same == len(want) == len(got),
+                  f"{cfg.name}: the restored parameters differ")
+            check(nones == 5, f"{cfg.name}: {nones} None attention entries")
+            del restored
+    if profile:
+        profile_train_step(step, state, batches[-1], cfg.name)
+    del state, batches
+    torch.cuda.empty_cache()
+
+
+def profile_call(fn, what: str) -> None:
+    """One call of ``fn`` under the profiler: the card's busy share and
+    its top kernels."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    print_profile(prof, wall, what, top=12)
+
+
 def run_serve_launcher() -> None:
     """The port's serve launcher (``repro_torch.launch.serve``) on its
     oracle pod: the async policy with pod-level allocation over virtual
@@ -2893,6 +3270,8 @@ def main() -> int:
         profile=profile)
     by_path["vision_serve"], by_path["vision_train"] = run_vision_path(
         profile=profile)
+    by_path["diffusion_serve"], by_path["diffusion_train"] = \
+        run_diffusion_path(profile=profile)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

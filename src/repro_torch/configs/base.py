@@ -8,9 +8,8 @@ Each ``repro_torch/configs/<arch_id>.py`` module exports:
   * ``SKIP``         — dict shape_name -> reason, for cells that are
     skipped (e.g. long_500k on pure full-attention LMs)
 
-``get_arch(arch_id)`` returns an ``ArchSpec`` bundling these.  The port
-has the four LM and the four vision archs; a diffusion id raises
-``NotImplementedError`` until the slice that ports its family.
+``get_arch(arch_id)`` returns an ``ArchSpec`` bundling these; the port
+has every arch of the reference's registry.
 """
 
 from __future__ import annotations
@@ -34,10 +33,6 @@ ARCH_IDS = (
 
 # canonical hyphenated ids (CLI spelling) -> module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
-
-# the families not ported yet, and the slice that ports each
-# (ROADMAP, queue 1, slice F)
-_UNPORTED = {"flux_dev": "diffusion", "unet_sdxl": "diffusion"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +58,17 @@ LM_SHAPES = {
                            global_batch=1),
 }
 
+DIFFUSION_SHAPES = {
+    "train_256": ShapeSpec("train_256", "train", img_res=256, batch=256,
+                           steps=1000),
+    "gen_1024": ShapeSpec("gen_1024", "generate", img_res=1024, batch=4,
+                          steps=50),
+    "gen_fast": ShapeSpec("gen_fast", "generate", img_res=512, batch=16,
+                          steps=4),
+    "train_1024": ShapeSpec("train_1024", "train", img_res=1024, batch=32,
+                            steps=1000),
+}
+
 VISION_SHAPES = {
     "cls_224": ShapeSpec("cls_224", "train", img_res=224, batch=256),
     "cls_384": ShapeSpec("cls_384", "train", img_res=384, batch=64),
@@ -85,11 +91,6 @@ def get_arch(arch_id: str) -> ArchSpec:
     mod_name = ALIASES.get(arch_id, arch_id)
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ALIASES)}")
-    if mod_name in _UNPORTED:
-        family = _UNPORTED[mod_name]
-        raise NotImplementedError(
-            f"{mod_name} is a {family} arch: the port has it with its "
-            f"{family} slice (ROADMAP, queue 1, slice F), not yet")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return ArchSpec(
         arch_id=mod_name,

@@ -4,10 +4,10 @@
 Runs a reduced-config training loop (the arch's ``smoke_config()``) on
 one device: the synthetic token pipeline behind a prefetcher, AdamW with
 10 warmup steps, gradient clipping, async checkpointing with
-crash-restart.  It prints the reference launcher's lines.  The LM and
-vision archs train (a vision batch is drawn from
-``np.random.default_rng(0)`` as the reference's is); a diffusion arch
-raises ``NotImplementedError`` until its slice is ported.
+crash-restart.  It prints the reference launcher's lines.  Every arch
+trains: the LM, vision and diffusion families (a vision or diffusion
+batch is drawn from ``np.random.default_rng(0)`` in the reference's
+order, so the two launchers' batches are equal).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 100 --ckpt-dir /tmp/ckpt [--device cpu]
@@ -28,6 +28,7 @@ from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import base as cfgbase
 from repro_torch.data.pipeline import Prefetcher, lm_batches
 from repro_torch.device import resolve_device
+from repro_torch.models import diffusion as diff_mod
 from repro_torch.models import transformer as lm_mod
 from repro_torch.models import vision as vis_mod
 from repro_torch.training import optimizer as opt_mod
@@ -47,7 +48,28 @@ def make_batch_gen(arch, cfg, batch, rng):
                     np.int32),
             }
 
-    return Prefetcher(vision_gen(), depth=2)
+    def diffusion_gen():
+        is_flux = isinstance(cfg, diff_mod.MMDiTConfig)
+        while True:
+            b = {"latents": rng.standard_normal(
+                    (batch, cfg.latent_res, cfg.latent_res, cfg.latent_ch)
+                 ).astype(np.float32),
+                 "seed": np.int32(rng.integers(0, 2 ** 31))}
+            if is_flux:
+                b["ctx"] = rng.standard_normal(
+                    (batch, cfg.n_ctx_tokens, cfg.d_ctx)).astype(np.float32)
+                b["pooled"] = rng.standard_normal(
+                    (batch, cfg.d_pooled)).astype(np.float32)
+            else:
+                b["ctx"] = rng.standard_normal(
+                    (batch, cfg.n_ctx_tokens, cfg.ctx_dim)).astype(
+                        np.float32)
+                b["add_emb"] = rng.standard_normal(
+                    (batch, cfg.d_add)).astype(np.float32)
+            yield b
+
+    return Prefetcher(vision_gen() if arch.family == "vision"
+                      else diffusion_gen(), depth=2)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -63,9 +85,6 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     arch = cfgbase.get_arch(args.arch)
-    if arch.family not in ("lm", "vision"):
-        raise NotImplementedError(f"the {arch.family} family trains with "
-                                  f"its slice, not yet")
     cfg = arch.smoke
     device = resolve_device(args.device)
     opt = opt_mod.adamw(lr=args.lr, warmup_steps=10)
@@ -73,9 +92,12 @@ def main(argv: list[str] | None = None) -> None:
     if arch.family == "lm":
         params = lm_mod.init_params(gen, cfg, device=device)
         step_fn = steps_mod.lm_train_step(cfg, opt)
-    else:
+    elif arch.family == "vision":
         params = vis_mod.init_params(gen, cfg, device=device)
         step_fn = steps_mod.vision_train_step(cfg, opt)
+    else:
+        params = diff_mod.init_params(gen, cfg, device=device)
+        step_fn = steps_mod.diffusion_train_step(cfg, opt)
     state = steps_mod.make_state(params, opt)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0

@@ -1,5 +1,6 @@
-"""The layers the CSP detector, the LM, the action head and the vision
-backbones use (port of the matching subset of ``repro.models.layers``).
+"""The layers the CSP detector, the LM, the action head, the vision
+backbones and the diffusion models use (port of the matching subset of
+``repro.models.layers``).
 
 Params are plain nested dicts of tensors, as in the reference.  The
 public layout follows the reference too: activations are channel-last
@@ -265,6 +266,20 @@ def gelu(x: Tensor) -> Tensor:
     """GELU with the tanh approximation, the reference's
     ``jax.nn.gelu(x, approximate=True)`` (torch's default is exact)."""
     return F.gelu(x, approximate="tanh")
+
+
+def timestep_embedding(t: Tensor, dim: int,
+                       max_period: float = 10000.0) -> Tensor:
+    """Sinusoidal timestep embedding (diffusion): ``(B,)`` -> float32
+    ``(B, dim)``, the cosines first, then the sines.  The frequencies'
+    exponent is divided by a tensor, as the reference divides (PyTorch
+    would multiply by the reciprocal of a Python divisor)."""
+    half = dim // 2
+    expo = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
+                                                device=t.device)
+    freqs = torch.exp(expo / torch.tensor(float(half), device=t.device))
+    args = t.to(torch.float32)[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The LM, vision and detector train and serve steps (port of
+"""The LM, vision, diffusion and detector train and serve steps (port of
 ``repro.training.steps``).
 
 Each builder returns ``step(state, batch) -> (state, metrics)`` (train)
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.models import detector as det_mod
+from repro_torch.models import diffusion as diff_mod
 from repro_torch.models import transformer as lm_mod
 from repro_torch.models import vision as vis_mod
 from repro_torch.training import optimizer as opt_mod
@@ -177,6 +178,50 @@ def vision_serve_step(cfg) -> Callable:
     def step(params, batch):
         logits, _ = vision_apply(params, batch["images"], cfg, train=False)
         return {"logits": logits}
+
+    return step
+
+
+# -- diffusion ----------------------------------------------------------------
+
+
+def diffusion_train_step(cfg, optimizer: opt_mod.Optimizer) -> Callable:
+    """batch ``{"latents": (B, R, R, C), "seed": integer, "ctx", and
+    "pooled" (MMDiT) or "add_emb" (UNet)}`` -> (state, ``{"loss",
+    "grad_norm", "step"}``).  The loss draws its timesteps and noise
+    from ``(batch["seed"], state["step"])``
+    (:func:`~repro_torch.models.diffusion.diffusion_draws`), as the
+    reference folds the step into ``PRNGKey(seed)``."""
+    loss = (diff_mod.flux_rf_loss if isinstance(cfg, diff_mod.MMDiTConfig)
+            else diff_mod.unet_eps_loss)
+
+    def step(state, batch):
+        loss_v, grads = value_and_grad(
+            lambda p: loss(p, batch, cfg, state["step"]), state["params"])
+        with torch.no_grad():
+            return _finish(state, optimizer, grads, loss_v)
+
+    return step
+
+
+def diffusion_denoise_step(cfg) -> Callable:
+    """One sampler step (a ``steps``-step generation calls this in a
+    loop): batch ``{"latents", "t", "ctx"}`` with ``"dt", "pooled",
+    "guidance"`` (MMDiT, an Euler step) or ``"t_prev", "add_emb"`` (UNet,
+    a DDIM step) -> ``{"latents"}``."""
+    is_flux = isinstance(cfg, diff_mod.MMDiTConfig)
+
+    @torch.no_grad()
+    def step(params, batch):
+        if is_flux:
+            x = diff_mod.flux_euler_step(
+                params, batch["latents"], batch["t"], batch["dt"],
+                batch["ctx"], batch["pooled"], batch["guidance"], cfg)
+        else:
+            x = diff_mod.unet_ddim_step(
+                params, batch["latents"], batch["t"], batch["t_prev"],
+                batch["ctx"], batch["add_emb"], cfg)
+        return {"latents": x}
 
     return step
 

@@ -31,6 +31,14 @@ summed in another order); a ResNet and a ConvNeXt ``vision_train_step``
 at their smoke configs, float32 with TF32 off, against the CPU's: loss
 and grad norm rtol 1e-4, accuracy exactly, the parameters as two AdamW
 runs above, the batchnorm running stats atol 1e-5.
+
+The diffusion family (no kernel: its attention is the plain ``_mha``):
+a denoise step and a ``diffusion_train_step`` of the flux-dev and
+unet-sdxl smoke configs, float32 with TF32 off, against the CPU's (flux's
+modulation drawn non-zero; the train step's draws come from a CPU
+generator, so both devices draw the same): the denoised latents atol
+1e-4, rtol 1e-4; loss and grad norm rtol 1e-4; the parameters as two
+AdamW runs above.
 """
 
 from __future__ import annotations
@@ -68,6 +76,9 @@ from repro_torch.serving.scheduler import TorchDetectorBackend
 from repro_torch import pytree
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import convnext_b as tconvnext
+from repro_torch.configs import flux_dev as tflux
+from repro_torch.configs import unet_sdxl as tunet
+from repro_torch.models import diffusion as tdiff
 from repro_torch.configs import resnet_50 as tresnet50
 from repro_torch.configs import smollm_135m as tsmol
 from repro_torch.data.pipeline import lm_batches, rasterize_targets
@@ -959,3 +970,51 @@ def test_cuda_vision_train_step_matches_cpu(cuda, fp32, mod):
                     _bn_leaves(hstate["params"])):
         assert c.is_cuda
         torch.testing.assert_close(c.cpu(), h, atol=1e-5, rtol=0)
+
+
+def _diffusion_batches(cfg, seed):
+    """(a denoise step's batch, a train step's batch) of ``cfg``, numpy."""
+    rng = np.random.default_rng(seed)
+    b, r = 2, cfg.latent_res
+
+    def randn(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    lat = randn(b, r, r, cfg.latent_ch)
+    if isinstance(cfg, tdiff.MMDiTConfig):
+        cond = {"ctx": randn(b, cfg.n_ctx_tokens, cfg.d_ctx),
+                "pooled": randn(b, cfg.d_pooled)}
+        denoise = {"t": np.array([0.9, 0.4], np.float32),
+                   "dt": np.full(b, 0.25, np.float32),
+                   "guidance": np.full(b, 3.5, np.float32)}
+    else:
+        cond = {"ctx": randn(b, cfg.n_ctx_tokens, cfg.ctx_dim),
+                "add_emb": randn(b, cfg.d_add)}
+        denoise = {"t": np.array([750.0, 400.0], np.float32),
+                   "t_prev": np.array([500.0, 150.0], np.float32)}
+    return ({"latents": lat, **cond, **denoise},
+            {"latents": lat, **cond, "seed": np.array(9, np.int32)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [tflux, tunet])
+def test_cuda_diffusion_steps_match_cpu(cuda, fp32, mod):
+    cfg = mod.smoke_config()
+    params = tdiff.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    if isinstance(cfg, tdiff.MMDiTConfig):
+        params = tdiff.perturb_modulation(params,
+                                          torch.Generator().manual_seed(1))
+    dbatch, tbatch = _diffusion_batches(cfg, 8)
+    denoise = tsteps.diffusion_denoise_step(cfg)
+    host = denoise(params, _to(dbatch, "cpu"))["latents"]
+    card = denoise(_to(params, cuda), _to(dbatch, cuda))["latents"]
+    assert card.is_cuda and card.dtype == torch.float32
+    torch.testing.assert_close(card.cpu(), host, atol=1e-4, rtol=1e-4)
+    opt = topt.adamw(lr=1e-3)
+    step = tsteps.diffusion_train_step(cfg, opt)
+    host, hstate = _two_steps(step, params, opt, [tbatch], "cpu")
+    card, cstate = _two_steps(step, params, opt, [tbatch], cuda)
+    for k in ("loss", "grad_norm"):
+        assert card[0][k] == pytest.approx(host[0][k], rel=1e-4)
+    _assert_adamw_close(cstate["params"], hstate["params"], 1e-3, 1)

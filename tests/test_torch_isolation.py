@@ -45,7 +45,8 @@ def test_every_module_imports_without_jax_or_reference():
               "serving.traffic", "serving.batching", "serving.baselines",
               "launch.serve", "launch.replay", "serving.tasks",
               "serving.fleet", "serving.replay", "distributed.elastic",
-              "models.vision", "models.action", "pytree",
+              "models.vision", "models.action", "models.diffusion",
+              "configs.flux_dev", "configs.unet_sdxl", "pytree",
               "training.optimizer", "training.compression",
               "training.steps", "checkpoint.checkpoint", "data.pipeline",
               "configs.base", "launch.train"):

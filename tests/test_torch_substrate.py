@@ -41,6 +41,7 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.data.pipeline import Prefetcher, lm_batches
 from repro_torch.data.synthetic import make_video
 from repro_torch.launch import train as tlaunch
+from repro_torch.models import diffusion as TDiff
 from repro_torch.models import transformer as TT
 from repro_torch.models import vision as TV
 from repro_torch.training import compression as comp
@@ -384,8 +385,12 @@ def test_arch_registry_matches_reference():
         assert t.config == TV.from_jax_config(j.config)
         assert t.smoke == TV.from_jax_config(j.smoke)
     for arch_id in ("flux-dev", "unet_sdxl"):
-        with pytest.raises(NotImplementedError, match="diffusion"):
-            tbase.get_arch(arch_id)
+        t, j = tbase.get_arch(arch_id), jbase.get_arch(arch_id)
+        assert (t.arch_id, t.family, t.skip) == (j.arch_id, j.family, j.skip)
+        assert t.config == TDiff.from_jax_config(j.config)
+        assert t.smoke == TDiff.from_jax_config(j.smoke)
+        assert {k: dataclasses.asdict(v) for k, v in t.shapes.items()} \
+            == {k: dataclasses.asdict(v) for k, v in j.shapes.items()}
     with pytest.raises(KeyError):
         tbase.get_arch("no-such-arch")
 
@@ -410,8 +415,28 @@ def test_train_launcher_trains_and_restarts(tmp_path):
     lines = out.getvalue().splitlines()
     assert lines[0] == "restored checkpoint at step 20"
     assert lines[1].startswith("step   21 loss=")
-    with pytest.raises(NotImplementedError, match="diffusion"):
-        tlaunch.main(["--arch", "flux-dev", "--device", "cpu"])
+    # the diffusion family trains, checkpoints and restarts the same way
+    # (on two PyTorch threads, restored after: the smoke UNet's many small
+    # ops crawl when six test processes each run a thread a core)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        for arch_id in ("flux-dev", "unet-sdxl"):
+            d = tmp_path / arch_id
+            argv = ["--arch", arch_id, "--steps", "2", "--ckpt-every", "1",
+                    "--batch", "2", "--ckpt-dir", str(d), "--device", "cpu"]
+            with redirect_stdout(io.StringIO()):
+                tlaunch.main(argv)
+            assert CheckpointManager(d).steps() == [1, 2]
+            out = io.StringIO()
+            with redirect_stdout(out):
+                tlaunch.main(argv[:3] + ["3"] + argv[4:])
+            lines = out.getvalue().splitlines()
+            assert lines[0] == "restored checkpoint at step 2"
+            assert lines[1].startswith("step    3 loss=")
+            assert lines[-1] == "done"
+    finally:
+        torch.set_num_threads(n_threads)
 
 
 def test_train_launcher_trains_and_restarts_resnet(tmp_path):
