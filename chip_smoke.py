@@ -192,7 +192,29 @@ Phases, in order; any failure exits non-zero:
    parameters and step (457 leaves, its 5 ``None`` attention entries)
    restored from a ``CheckpointManager`` bit for bit.  Launch counts are
    set to 0 before each arch's serve run and before its train run: none
-   may have launched a kernel.
+   may have launched a kernel;
+12. the launch layer's cells (``repro_torch.launch.cells``, no kernel:
+   every cell's attention is plain or ``chunked``): one cell of each
+   family at its published shape (``CELL_RUNS``: vit_b16 ``serve_b128``,
+   resnet_50 ``cls_224``, a train step at batch 256, unet_sdxl
+   ``gen_fast``, one denoise step, and smollm_135m ``prefill_32k`` with
+   its batch of 32 cut to 1).  Each cell's step is counted
+   (``repro_torch.launch.hloanalysis``) on fake CUDA tensors
+   (``dryrun.count_cell``) and again on real tensors drawn from a seed on
+   the card (``cells.materialize``): the two FLOP counts, in total and by
+   operand dtype, must be equal (the prefill at 4096 tokens, four
+   attention chunks; its full 32768 is counted on the real tensors).
+   Then the step runs ``CELL_TIMED_STEPS`` times after that counted run,
+   its warm-up (host clock ended by ``torch.cuda.synchronize()``; the
+   outputs must be finite): ms a step, TFLOP/s at the counted FLOPs, and
+   two bounds with the share of each reached, beside the card's name and
+   power limit: the card bound, the larger of the products at their
+   operand dtype's peak (bf16 989, float32 67 TFLOP/s) and the least
+   traffic (the arguments read and the outputs written once, over 3.35
+   TB/s); and the eager-traffic bound, the larger of all the FLOPs over
+   989 TFLOP/s and the counted bytes (every dispatched op's operands and
+   results) over 3.35 TB/s.  Launch counts are set to 0 before the phase
+   and read after: none may have launched a kernel.
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -213,8 +235,9 @@ and the frame loop's kernels among them.
 The last lines are the kernels' JSON record (with each kernel's launches
 by path: the frame loop of phase 5, the mixed pod of phase 6, the LM of
 phase 7, the MoE LM of phase 8, the LM's and the detector's training of
-phase 9, the vision serve and train paths of phase 10 and the diffusion
-serve and train paths of phase 11, all six 0),
+phase 9, the vision serve and train paths of phase 10, the diffusion
+serve and train paths of phase 11 and the cells of phase 12, all seven
+0),
 the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
@@ -3163,6 +3186,148 @@ def train_diffusion(arch: str, held: dict, seed: int, profile: bool
     torch.cuda.empty_cache()
 
 
+# phase 12: one cell of each family of the launch layer's table
+# (repro_torch.launch.cells), at its published shape on the card; the
+# batch of a cell whose step would outlast the phase is cut (reduced), and
+# the fake count of a cell whose op count would does its fake = real check
+# at a shorter sequence (the last field) and counts the full cell on the
+# real tensors alone
+CELL_RUNS = (("vit_b16", "serve_b128", None, None),
+             ("resnet_50", "cls_224", None, None),
+             ("unet_sdxl", "gen_fast", None, None),
+             # prefill_32k's batch of 32 -> 1: the chunked attention's
+             # float32 score passes take ~9.2 s a prompt on the H100; its
+             # 26k ops take ~20 s to count on fake tensors, so fake = real
+             # is held at 4096 tokens (4 attention chunks of 1024)
+             ("smollm_135m", "prefill_32k", 1, 4096))
+CELL_TIMED_STEPS = 3
+# the product peaks by operand dtype (dense, data sheet): bf16 and fp16 on
+# the tensor cores; float32 outside them (the port turns TF32 off)
+PEAK_FLOPS_BY_DTYPE = {"bfloat16": PEAK_BF16_TC_FLOPS,
+                       "float16": PEAK_BF16_TC_FLOPS,
+                       "float32": PEAK_F32_FLOPS}
+
+
+def _phase12_cell(arch_id: str, shape_name: str, batch: int | None = None,
+                  seq_len: int | None = None):
+    """The launch layer's cell, or an LM cell at a cut batch or length."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import cells as cells_mod
+
+    if batch is None and seq_len is None:
+        return cells_mod.build_cell(arch_id, shape_name)
+    shape = cfgbase.get_arch(arch_id).shapes[shape_name]
+    shape = dataclasses.replace(shape,
+                                global_batch=batch or shape.global_batch,
+                                seq_len=seq_len or shape.seq_len)
+    return cells_mod._lm_cell(cfgbase.get_arch(arch_id), shape)
+
+
+def run_cells_path() -> dict:
+    """Phase 12; returns the launches of the cells' steps (none may
+    launch a kernel: every cell's attention is plain or ``chunked``)."""
+    import torch
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels import _build
+    from repro_torch.launch import cells as cells_mod
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hloanalysis import analyze, tensor_bytes
+
+    card = card_line()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    dev = torch.device("cuda")
+    print(f"cells: {len(CELL_RUNS)} cells of the launch layer, counted on "
+          f"fake CUDA tensors and on real seeded ones, then timed")
+    for i, (arch_id, shape_name, batch, check_len) in enumerate(CELL_RUNS):
+        cell = _phase12_cell(arch_id, shape_name, batch)
+        what = f"{arch_id}/{shape_name}"
+        if batch is not None:
+            full = cfgbase.get_arch(arch_id).shapes[shape_name].global_batch
+            what += f" (reduced: batch {full} -> {batch})"
+        held = cell if check_len is None else _phase12_cell(
+            arch_id, shape_name, batch, check_len)
+        t = time.perf_counter()
+        fake = dryrun.count_cell(held, dev)
+        t_fake = time.perf_counter() - t
+        first, data = cells_mod.materialize(held, device=dev, seed=90 + i)
+        t = time.perf_counter()
+        real = analyze(held.step, first, data)
+        torch.cuda.synchronize()
+        t_real = time.perf_counter() - t
+        at = "" if check_len is None else f" at {check_len} tokens"
+        check(fake["flops"] == real["flops"] > 0
+              and fake["flops_by_dtype"] == real["flops_by_dtype"],
+              f"{what}{at}: fake-tensor FLOPs {fake['flops']:.6e} "
+              f"{fake['flops_by_dtype']} != real {real['flops']:.6e} "
+              f"{real['flops_by_dtype']}")
+        print(f"cell {what}: {cell.kind}, FLOPs{at} {fake['flops']:.6e} fake "
+              f"= {real['flops']:.6e} real (counted in {t_fake:.1f} s and "
+              f"{t_real:.1f} s), bytes {fake['hbm_bytes']:.6e} fake / "
+              f"{real['hbm_bytes']:.6e} real, {fake['n_ops']} ops")
+        if held is not cell:  # the full cell, counted on real tensors
+            del first, data
+            first, data = cells_mod.materialize(cell, device=dev,
+                                                seed=90 + i)
+            t = time.perf_counter()
+            real = analyze(cell.step, first, data)
+            torch.cuda.synchronize()
+            t_real = time.perf_counter() - t
+            print(f"cell {what}: FLOPs {real['flops']:.6e} real (counted in "
+                  f"{t_real:.1f} s), bytes {real['hbm_bytes']:.6e}, "
+                  f"{real['n_ops']} ops")
+        print(f"cell {what}: model_flops / FLOPs "
+              f"{cell.model_flops / real['flops']:.4f}, FLOPs by operand "
+              f"dtype {real['flops_by_dtype']}")
+        arg_bytes = sum(tensor_bytes(x) for x in _leaves((first, data))
+                        if isinstance(x, torch.Tensor))
+        times = [t_real * 1e3]  # the counted run is the warm-up
+        for _ in range(CELL_TIMED_STEPS):
+            t = time.perf_counter()
+            out = cell.step(first, data)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if cell.kind == "train":
+                first = out[0]
+        check(all(bool(torch.isfinite(x).all()) for x in _leaves(out)
+                  if isinstance(x, torch.Tensor) and x.is_floating_point()),
+              f"{what}: non-finite output")
+        out_bytes = sum(tensor_bytes(x) for x in _leaves(out)
+                        if isinstance(x, torch.Tensor))
+        ms = sum(times[1:]) / CELL_TIMED_STEPS
+        # the card's bound: each product at its dtype's peak, and the least
+        # traffic (the arguments read once, the outputs written once: the
+        # parameters, the batch, a train cell's state both ways)
+        compute_ms = sum(n / PEAK_FLOPS_BY_DTYPE[d]
+                         for d, n in real["flops_by_dtype"].items()) * 1e3
+        least_ms = (arg_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+        card_ms = max(compute_ms, least_ms)
+        card_by = "compute" if compute_ms >= least_ms else "least traffic"
+        # the eager-traffic bound: every dispatched op's operands and
+        # results through HBM, all products at the bf16 peak
+        eager_ms, by = bound_ms(real["hbm_bytes"], real["flops"],
+                                PEAK_BF16_TC_FLOPS)
+        print(f"cell {what}: {' / '.join(f'{x:.1f}' for x in times[1:])} "
+              f"ms a step (the counted warm-up {times[0]:.1f}), {ms:.1f} ms "
+              f"mean, {real['flops'] / ms / 1e9:.1f} TFLOP/s; card bound "
+              f"{card_ms:.3f} ms ({card_by}: "
+              f"products at their dtype's peak {compute_ms:.3f} ms, "
+              f"arguments + outputs {arg_bytes + out_bytes:.4e} B "
+              f"{least_ms:.3f} ms), {card_ms / ms:.1%} of it reached; "
+              f"eager-traffic bound {eager_ms:.3f} ms ({by}: FLOPs / "
+              f"989e12, counted bytes / 3.35e12), {eager_ms / ms:.1%} of it "
+              f"reached; {card}")
+        del first, data, out, cell, held
+        torch.cuda.empty_cache()
+    launched = _build.launch_counts()
+    print(f"cells launches: {launched}")
+    check(not launched, "a cell's step launched a kernel")
+    return launched
+
+
 def profile_call(fn, what: str) -> None:
     """One call of ``fn`` under the profiler: the card's busy share and
     its top kernels."""
@@ -3272,6 +3437,7 @@ def main() -> int:
         profile=profile)
     by_path["diffusion_serve"], by_path["diffusion_train"] = \
         run_diffusion_path(profile=profile)
+    by_path["cells"] = run_cells_path()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -26,7 +26,8 @@ as the reference scans them; here a Python loop runs over their
 recomputed in the backward (non-reentrant ``torch.utils.checkpoint``),
 where the reference wraps the scan body in ``jax.checkpoint``.  The
 reference's ``constrain(...)`` sharding hints are the identity on one
-device and are left out (``repro_torch`` has no sharding module yet).
+device and are left out (``repro_torch.distributed.sharding.constrain``
+is the identity until the multi-device path gives it meaning).
 
 The public functions take and return channel-last latents ``(B, R, R,
 C)``, as the reference does.  The UNet runs on the NCHW view inside:
@@ -322,7 +323,9 @@ def diffusion_draws(batch: dict, step) -> tuple[Tensor, Tensor]:
     They come from a CPU ``torch.Generator`` seeded by ``(batch["seed"],
     step)`` (mixed into the 32 bits it keeps by numpy's
     ``SeedSequence``), so a step repeats bit for bit on every device and
-    two steps differ.  The reference draws the same kinds from
+    two steps differ.  Both are host integers: a Python or numpy int is
+    taken as it is, a 0-d tensor is read to the host (which a fake
+    tensor cannot be: the launch layer's cells pass ints).  The reference draws the same kinds from
     ``jax.random.fold_in(PRNGKey(seed), step)`` (other bits: the parity
     tests substitute the reference's draws for this function)."""
     x0 = batch["latents"]

@@ -410,8 +410,10 @@ def moe_block(p: Params, x: Tensor, cfg: TransformerConfig,
 
     # load-balancing aux loss
     me = probs.mean(dim=0)
-    counts = torch.bincount(expert_ids.reshape(-1), minlength=e).to(
-        torch.float32)
+    # picks per expert, a fixed-shape (E,) count (bincount's output
+    # shape depends on the data, which a fake tensor cannot give)
+    counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, expert_ids.reshape(-1), torch.ones(t * k, device=dev))
     aux = e * torch.sum(me * counts / (t * k))
 
     capacity = moe_capacity(cfg, t)

@@ -8,7 +8,9 @@ reference has ``None`` (ConvNeXt's first downsample, a ResNet stage of
 depth 1).  Repeated homogeneous blocks stay stacked on a leading axis,
 as the reference scans them; here a Python loop runs over their
 ``unbind`` slices.  The reference's ``constrain(...)`` sharding hints
-are the identity on one device and are dropped.
+are the identity on one device and are dropped
+(``repro_torch.distributed.sharding.constrain`` is the identity until the
+multi-device path gives it meaning).
 
 The public functions take channel-last ``(B, H, W, 3)`` images and
 return channel-last feature maps, as the reference does.  Inside,

@@ -4,7 +4,10 @@ The training substrate walks its parameter, gradient and optimizer trees
 in ``jax.tree.flatten``'s order, so that a checkpoint's ``leaf_i`` and a
 norm's sum over the leaves agree with the reference's: a dict's values in
 the order of its sorted keys, a list's and a tuple's in their own order.
-Anything else is a leaf.
+Anything else is a leaf; ``None`` is a node with no children.  A leaf's
+path (:func:`flatten_with_path`) is the tuple of the dict keys and
+sequence indices that lead to it, as ``jax.tree_util``'s ``DictKey.key``
+and ``SequenceKey.idx`` give them.
 """
 
 from __future__ import annotations
@@ -79,26 +82,44 @@ class TreeDef:
         return out
 
 
-def flatten(tree, is_leaf: Callable[[Any], bool] | None = None
-            ) -> tuple[list, TreeDef]:
-    """(leaves in ``jax.tree.flatten``'s order, the structure)."""
+def _flatten(tree, is_leaf) -> tuple[list, list, TreeDef]:
     leaves: list = []
+    paths: list = []
 
-    def walk(t):
+    def walk(t, path):
         if is_leaf is not None and is_leaf(t):
             leaves.append(t)
+            paths.append(path)
             return _LEAF
         if t is None:
             return None
         if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
+            return {k: walk(t[k], path + (k,)) for k in sorted(t)}
         if isinstance(t, list):
-            return [walk(v) for v in t]
+            return [walk(v, path + (i,)) for i, v in enumerate(t)]
         if isinstance(t, tuple):
-            return tuple(walk(v) for v in t)
+            return tuple(walk(v, path + (i,)) for i, v in enumerate(t))
         leaves.append(t)
+        paths.append(path)
         return _LEAF
-    return leaves, TreeDef(walk(tree))
+    node = walk(tree, ())
+    return leaves, paths, TreeDef(node)
+
+
+def flatten(tree, is_leaf: Callable[[Any], bool] | None = None
+            ) -> tuple[list, TreeDef]:
+    """(leaves in ``jax.tree.flatten``'s order, the structure)."""
+    leaves, _, treedef = _flatten(tree, is_leaf)
+    return leaves, treedef
+
+
+def flatten_with_path(tree, is_leaf: Callable[[Any], bool] | None = None
+                      ) -> tuple[list, TreeDef]:
+    """([(path, leaf)] in :func:`flatten`'s order, the structure), a
+    path being the tuple of keys and indices from the root to the leaf
+    (``jax.tree_util.tree_flatten_with_path``'s, entries unwrapped)."""
+    leaves, paths, treedef = _flatten(tree, is_leaf)
+    return list(zip(paths, leaves)), treedef
 
 
 def leaves(tree) -> list:
@@ -109,6 +130,13 @@ def tree_map(fn: Callable, tree) -> Any:
     """``fn`` over the leaves of ``tree``, in a tree of its structure."""
     flat, treedef = flatten(tree)
     return treedef.unflatten([fn(x) for x in flat])
+
+
+def tree_map_with_path(fn: Callable, tree) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, in a tree of its
+    structure (``jax.tree_util.tree_map_with_path``)."""
+    flat, treedef = flatten_with_path(tree)
+    return treedef.unflatten([fn(p, x) for p, x in flat])
 
 
 def device(tree):

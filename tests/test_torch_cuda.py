@@ -39,6 +39,11 @@ modulation drawn non-zero; the train step's draws come from a CPU
 generator, so both devices draw the same): the denoised latents atol
 1e-4, rtol 1e-4; loss and grad norm rtol 1e-4; the parameters as two
 AdamW runs above.
+
+The launch layer (no kernel: its cells' attention is plain or
+``chunked``): a smoke cell counted on fake CUDA tensors, on real ones
+and on fake CPU tensors alike, and the counter refusing a step that
+launches a kernel.
 """
 
 from __future__ import annotations
@@ -1018,3 +1023,67 @@ def test_cuda_diffusion_steps_match_cpu(cuda, fp32, mod):
     for k in ("loss", "grad_norm"):
         assert card[0][k] == pytest.approx(host[0][k], rel=1e-4)
     _assert_adamw_close(cstate["params"], hstate["params"], 1e-3, 1)
+
+
+def _smoke_cell(arch_id: str, shape, **cfg_kw):
+    from repro_torch.configs import base as tbase
+    from repro_torch.launch import cells as tcells
+
+    arch = tbase.get_arch(arch_id)
+    arch = dataclasses.replace(
+        arch, config=dataclasses.replace(arch.smoke, **cfg_kw))
+    build = {"lm": tcells._lm_cell, "vision": tcells._vision_cell,
+             "diffusion": tcells._diffusion_cell}[arch.family]
+    return build(arch, shape)
+
+
+_BF16 = dict(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+_CELL_SHAPES = {
+    "smollm_135m": (dict(kind="train", seq_len=64, global_batch=2), {}),
+    # bf16: on the card the experts' products take bmm's float32-output
+    # overload (the CPU widens its operands instead)
+    "mixtral_8x22b": (dict(kind="prefill", seq_len=64, global_batch=2),
+                      _BF16),
+    "resnet_50": (dict(kind="serve", img_res=64, batch=2), {}),
+    "unet_sdxl": (dict(kind="generate", img_res=128, batch=2), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", sorted(_CELL_SHAPES))
+def test_cuda_cell_counts_fake_real_and_cpu_alike(cuda, arch_id):
+    """A smoke cell's count on fake CUDA tensors equals its count on real
+    seeded CUDA tensors (FLOPs in total and by dtype, bytes and ops) and
+    on fake CPU tensors (FLOPs)."""
+    from repro_torch.configs import base as tbase
+    from repro_torch.launch import cells as tcells
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hloanalysis import analyze
+
+    shape, cfg_kw = _CELL_SHAPES[arch_id]
+    cell = _smoke_cell(arch_id, tbase.ShapeSpec("smoke", **shape), **cfg_kw)
+    fake = dryrun.count_cell(cell, cuda)
+    real = analyze(cell.step, *tcells.materialize(cell, device=cuda, seed=5))
+    host = dryrun.count_cell(cell, "cpu")
+    assert fake["flops"] > 0
+    for key in ("flops", "flops_by_dtype", "hbm_bytes", "n_ops"):
+        assert fake[key] == real[key], key
+    # equal in total; not split alike: the CPU widens the MoE experts'
+    # bf16 products to float32
+    assert host["flops"] == fake["flops"]
+
+
+@pytest.mark.cuda
+def test_cuda_analyze_refuses_a_flash_launch(cuda):
+    """A step that launches ``flash_attention`` is refused: the kernel's
+    work is invisible to the counter."""
+    from repro_torch.launch.hloanalysis import analyze
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 128, 2, 64, generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = dict(_build.launch_counts())
+    with pytest.raises(RuntimeError, match="flash_attention_wgmma"):
+        analyze(lambda *a: tattn.flash_attention(*a, causal=True), q, k, v)
+    assert _build.launch_counts()["flash_attention_wgmma"] == \
+        before.get("flash_attention_wgmma", 0) + 1

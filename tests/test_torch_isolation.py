@@ -49,7 +49,9 @@ def test_every_module_imports_without_jax_or_reference():
               "configs.flux_dev", "configs.unet_sdxl", "pytree",
               "training.optimizer", "training.compression",
               "training.steps", "checkpoint.checkpoint", "data.pipeline",
-              "configs.base", "launch.train"):
+              "configs.base", "launch.train", "distributed.sharding",
+              "launch.mesh", "launch.cells", "launch.hloanalysis",
+              "launch.dryrun"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import sys\n"
