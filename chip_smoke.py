@@ -214,7 +214,31 @@ Phases, in order; any failure exits non-zero:
    TB/s); and the eager-traffic bound, the larger of all the FLOPs over
    989 TFLOP/s and the counted bytes (every dispatched op's operands and
    results) over 3.35 TB/s.  Launch counts are set to 0 before the phase
-   and read after: none may have launched a kernel.
+   and read after: none may have launched a kernel;
+13. the multi-device path (no kernel: its products are the MoE block's),
+   on one card, so at world size 1: an NCCL process group from a file
+   store (no network) and a (1, 1) ``("data", "model")`` ``DeviceMesh``
+   (the backend and NCCL's version are printed).  (b) ``moe_block_a2a``
+   at mixtral-8x22b's published width (one layer: d_model 6144, 8
+   experts top-2, d_ff_expert 16384, bf16, seeded weights) on
+   ``MD_MOE_TOKENS`` tokens, at the config's capacity factor and at
+   ``MD_DROP_CF`` (which must drop picks), against ``moe_block`` on the
+   same tokens: the output, the aux and every leaf's gradient of
+   ``sum(out**2)`` bit for bit (at one model rank the exchange moves
+   nothing), and both blocks' ms.  (c) ``compressed_psum_step`` over
+   ``data`` on smollm-135m's full-width float32 gradients (one
+   ``lm_loss`` backward): the bf16 mean equal to the bf16-rounded
+   gradients and the residual to the gradients minus them, the top-k
+   mean to ``topk_decompress(topk_compress(...))``, bit for bit; the
+   step's and its all-reduce's ms (one-rank NCCL calls, not a fabric
+   figure).  (d) smollm-135m's parameters saved by ``save_gathered``
+   (specs from the LM rules) under ``mesh_signature``, restored by
+   ``restore_local`` on the mesh: every leaf bit for bit, the signature
+   printed.  (e) with more than one card, a ``PAPER_LADDER`` rung's
+   replica forward split over every card against the unsplit forward;
+   with one, a line that says the split was not run here and names the
+   CPU test that holds it.  Launch counts are set to 0 before the phase
+   and read after.
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -236,8 +260,8 @@ The last lines are the kernels' JSON record (with each kernel's launches
 by path: the frame loop of phase 5, the mixed pod of phase 6, the LM of
 phase 7, the MoE LM of phase 8, the LM's and the detector's training of
 phase 9, the vision serve and train paths of phase 10, the diffusion
-serve and train paths of phase 11 and the cells of phase 12, all seven
-0),
+serve and train paths of phase 11, the cells of phase 12 and the
+multi-device path of phase 13, all seven 0 on one card),
 the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
@@ -3328,6 +3352,287 @@ def run_cells_path() -> dict:
     return launched
 
 
+# the multi-device path (phase 13): mixtral-8x22b's MoE layer at published
+# width on MD_MOE_TOKENS tokens, at the config's capacity factor and at
+# MD_DROP_CF, which drops picks
+MD_MOE_TOKENS = 4096
+MD_DROP_CF = 0.5
+# smollm-135m's gradients for the compressed all-reduce: one lm_loss
+# backward of the float32 policy on MD_GRAD_BATCH x MD_GRAD_SEQ tokens
+MD_GRAD_BATCH, MD_GRAD_SEQ = 2, 2048
+# the replica forward's CPU twin (one card here)
+MD_REPLICA_TEST = ("tests/test_torch_placement_sharded.py::"
+                   "test_sharded_forward_matches_unsharded")
+
+
+def run_multi_device_path() -> dict:
+    """Phase 13; returns the phase's launches (none: the multi-device
+    path's products are the MoE block's and the detector's, and its
+    replica forward runs only with more than one card)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    _build.reset_launch_counts()
+    # (a) an NCCL process group of world size 1 from a file store
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_store_")) / "store"
+    mesh = C.init_mesh((1, 1), ("data", "model"), "cuda", rank=0,
+                       store=str(store))
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    print(f"multi-device path: {dist.get_backend()} (NCCL {nccl}), world "
+          f"size {dist.get_world_size()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+          f" on {torch.cuda.device_count()} card(s): one card holds one "
+          f"rank, so every collective here is a one-rank NCCL call, not a "
+          f"fabric figure; {card}")
+    try:
+        md_moe_a2a(mesh, card)
+        md_compressed_psum(mesh, card)
+        md_checkpoint(mesh)
+    finally:
+        dist.destroy_process_group()
+    md_replica_forward(card)
+    launched = _build.launch_counts()
+    print(f"multi-device launches: {launched}")
+    return launched
+
+
+def md_moe_a2a(mesh, card: str) -> None:
+    """(b) ``moe_block_a2a`` on the (1, 1) mesh against ``moe_block`` at
+    mixtral-8x22b's published width (one layer, bf16): the output, the
+    aux and the gradient of ``sum(out**2)`` of every leaf, bit for bit
+    (at one model rank the exchange moves nothing), at the config's
+    capacity factor and at one that drops picks; both blocks' ms."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import mixtral_8x22b
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    full = mixtral_8x22b.full_config()
+    gen = torch.Generator(device=dev).manual_seed(130)
+    p = T._layer_params(T.init_params(
+        gen, dataclasses.replace(full, n_layers=1), device=dev), 0)["moe"]
+    x = torch.randn(MD_MOE_TOKENS, full.d_model, generator=gen, device=dev,
+                    dtype=full.compute_dtype)
+    gb = sum(t.numel() * t.element_size() for t in p.values()) / 1e9
+    for cf in (full.capacity_factor, MD_DROP_CF):
+        cfg = dataclasses.replace(full, capacity_factor=cf)
+        res, routes = [], []
+        with use_mesh(mesh), torch.no_grad():
+            fwd = [T.moe_block(p, x, cfg, routes), T.moe_block_a2a(p, x, cfg)]
+            ms = [time_ms(lambda: T.moe_block(p, x, cfg), reps=10),
+                  time_ms(lambda: T.moe_block_a2a(p, x, cfg), reps=10)]
+        dropped = int((~routes[0].keep).sum())
+        for blk in (T.moe_block, T.moe_block_a2a):
+            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+            with use_mesh(mesh):
+                out, _ = blk(leaves, x, cfg)
+            grads = torch.autograd.grad((out.float() ** 2).sum(),
+                                        [leaves[k] for k in sorted(leaves)])
+            res.append(grads)
+            del out, leaves
+        same_fwd = all(torch.equal(bits(a), bits(b))
+                       for a, b in zip(fwd[0], fwd[1]))
+        same_grad = sum(torch.equal(bits(a), bits(b))
+                        for a, b in zip(*res))
+        finite = all(bool(torch.isfinite(t).all()) for t in fwd[1])
+        cap = T.moe_capacity(cfg, MD_MOE_TOKENS)
+        print(f"moe_block_a2a {full.name} (1 layer, d_model {full.d_model}, "
+              f"{full.n_experts} experts top-{full.moe_top_k}, d_ff_expert "
+              f"{full.d_ff_expert}, bf16, {gb:.2f} GB of weights) on "
+              f"{MD_MOE_TOKENS} tokens at capacity factor {cf} (capacity "
+              f"{cap}, {dropped} of {MD_MOE_TOKENS * full.moe_top_k} picks "
+              f"dropped): output and aux against moe_block "
+              f"{'bit-equal' if same_fwd else 'NOT bit-equal'}, gradients "
+              f"{same_grad} of {len(res[0])} leaves bit-equal; moe_block "
+              f"{ms[0]:.3f} ms, moe_block_a2a {ms[1]:.3f} ms; {card}")
+        check(finite, "moe_block_a2a gave a non-finite output or aux")
+        check(same_fwd and same_grad == len(res[0]),
+              f"moe_block_a2a differs from moe_block at cf {cf}")
+        check(cf != MD_DROP_CF or dropped > 0,
+              f"capacity factor {cf} dropped no pick")
+        del fwd, res
+    del p, x
+    torch.cuda.empty_cache()
+
+
+def md_compressed_psum(mesh, card: str) -> None:
+    """(c) ``compressed_psum_step`` over ``data`` on smollm-135m's
+    full-width float32 gradients: with one rank, the bf16 mean is the
+    bf16-rounded gradients and the residual the gradient minus them, bit
+    for bit; the top-k mean is ``topk_decompress(topk_compress(...))``,
+    bit for bit; the all-reduce's ms."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.configs import smollm_135m
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import transformer as T
+    from repro_torch.training import compression as comp
+    from repro_torch.training import steps as steps_mod
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(smollm_135m.full_config(),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(131), cfg,
+                           device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(iter(
+        lm_batches(cfg.vocab_size, MD_GRAD_BATCH, MD_GRAD_SEQ, seed=131,
+                   n_batches=1))).items()}
+    _, grads = steps_mod.value_and_grad(lambda p: T.lm_loss(p, batch, cfg),
+                                        params)
+    del params
+    g = pytree.leaves(grads)
+    n = sum(t.numel() for t in g)
+    zero = comp.CompressionState.zeros_like(grads)
+    for mode in ("bf16", "topk"):
+        mean, new = comp.compressed_psum_step(grads, zero, "data", mode, mesh)
+        if mode == "bf16":
+            want = [t.to(torch.bfloat16).float() for t in g]
+            want_res = [t - w for t, w in zip(g, want)]
+        else:
+            payload, st = comp.topk_compress(grads, zero)
+            want = pytree.leaves(comp.topk_decompress(payload, grads))
+            want_res = pytree.leaves(st.residual)
+        same = sum(torch.equal(bits(a), bits(b))
+                   for a, b in zip(pytree.leaves(mean), want))
+        same_res = sum(torch.equal(bits(a), bits(b))
+                       for a, b in zip(pytree.leaves(new.residual), want_res))
+        nonzero = sum(bool((r != 0).any()) for r in want_res)
+        step_ms = time_ms(lambda: comp.compressed_psum_step(
+            grads, zero, "data", mode, mesh), reps=5, warmup=1)
+        dense = [w.clone() for w in want]
+        ar_ms = time_ms(lambda: [C.psum(t, "data", mesh) for t in dense],
+                        reps=5, warmup=1)
+        print(f"compressed_psum_step {mode} over data, smollm-135m's "
+              f"{len(g)} gradient leaves ({n} float32 values, one lm_loss "
+              f"backward at {MD_GRAD_BATCH} x {MD_GRAD_SEQ}): mean {same} of "
+              f"{len(g)} leaves bit-equal to the compressor's, residual "
+              f"{same_res} of {len(g)} ({nonzero} non-zero); the step "
+              f"{step_ms:.3f} ms, its float32 all-reduce {ar_ms:.3f} ms "
+              f"({4 * n / 1e6:.1f} MB in {len(g)} one-rank NCCL calls, not a "
+              f"fabric figure); {card}")
+        check(same == same_res == len(g),
+              f"compressed_psum_step {mode} differs from its compressor")
+        check(nonzero > 0, f"{mode}: every residual is zero")
+        del mean, new, dense
+    del grads, g, zero
+    torch.cuda.empty_cache()
+
+
+def md_checkpoint(mesh) -> None:
+    """(d) smollm-135m's parameters saved through the gathering save
+    under ``mesh_signature`` (their specs from the LM rules), restored,
+    and each leaf's block on the (1, 1) mesh: bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.checkpoint.checkpoint import (CheckpointManager,
+                                                   mesh_signature,
+                                                   restore_local,
+                                                   save_gathered)
+    from repro_torch.configs import smollm_135m
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    cfg = smollm_135m.full_config()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(132), cfg,
+                           device=dev)
+    specs = sharding.spec_tree(params, sharding.lm_param_rules())
+    mgr = CheckpointManager(tempfile.mkdtemp(prefix="chip_smoke_md_ckpt_"))
+    t = time.perf_counter()
+    save_gathered(mgr, 1, params, mesh, specs)
+    save_s = time.perf_counter() - t
+    template = T.init_params(torch.Generator(device=dev).manual_seed(133),
+                             cfg, device=dev)
+    t = time.perf_counter()
+    got = pytree.leaves(restore_local(mgr, 1, template, mesh, specs))
+    load_s = time.perf_counter() - t
+    want = pytree.leaves(params)
+    same = sum(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+               for a, b in zip(got, want))
+    sig = mgr.manifest(1)["mesh"]
+    sharded = sum(any(e is not None for e in s)
+                  for s in pytree.flatten(specs, lambda s: isinstance(
+                      s, sharding.P))[0])
+    print(f"checkpoint through the gathering save: smollm-135m, "
+          f"{len(want)} leaves ({sharded} with a sharded spec), signature "
+          f"{sig}, saved in {save_s:.2f} s, restored and sharded on the mesh "
+          f"in {load_s:.2f} s; {same} of {len(want)} leaves bit for bit")
+    check(sig == mesh_signature(mesh) == {"shape": [1, 1],
+                                          "axes": ["data", "model"]},
+          f"the manifest's signature {sig}")
+    check(same == len(want) == len(got),
+          "the restored parameters differ from the saved ones")
+    del params, template, got, want
+
+
+def md_replica_forward(card: str) -> None:
+    """(e) with more than one card, the replica forward of a
+    ``PAPER_LADDER`` rung split over every card against the unsplit
+    forward; on one card, the line that says so."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"replica forward: not run on this machine ({n} card); the "
+              f"split over a replica group is held on the CPU by "
+              f"{MD_REPLICA_TEST} (8 CPU device identities)")
+        return
+    import numpy as np
+
+    from repro_torch.core import sroi as sroi_mod
+    from repro_torch.models import detector as det_mod
+    from repro_torch.serving import placement, profiles
+    from repro_torch.serving.scheduler import TorchDetectorBackend
+
+    cfg = det_mod.PAPER_LADDER[0]
+    dev = torch.device("cuda", 0)
+    params = det_mod.init_params(torch.Generator(device=dev).manual_seed(134),
+                                 cfg, device=dev)
+    backend = TorchDetectorBackend([cfg], [params], conf=0.01, device=dev)
+    v = profiles.make_ladder()[0]
+    group = placement.VariantPlacement(
+        [v], devices=[torch.device("cuda", i) for i in range(n)]).groups[0]
+    rng = np.random.default_rng(134)
+    frame = rng.random((960, 1920, 3)).astype(np.float32)
+    regions = [sroi_mod.SRoI(center=(float(rng.uniform(-2.5, 2.5)),
+                                     float(rng.uniform(-0.9, 0.9))),
+                             fov=(1.0, 1.0)) for _ in range(2 * n + 1)]
+    items = [(frame, r) for r in regions]
+    plain = backend.infer_srois_batched(items, v)
+    split = backend.infer_srois_batched(items, v, group=group)
+    bad = 0
+    for a, b in zip(plain, split):
+        bad += len(a) != len(b) or any(
+            x.category != y.category
+            or not np.allclose(x.box, y.box, rtol=1e-4, atol=1e-4)
+            for x, y in zip(a, b))
+    t = time.perf_counter()
+    backend.infer_srois_batched(items, v, group=group)
+    ms = (time.perf_counter() - t) * 1e3
+    print(f"replica forward: {cfg.input_size} px rung over {n} cards, "
+          f"{len(items)} crops, {sum(map(len, plain))} detections: "
+          f"{len(items) - bad} of {len(items)} rows match the unsplit "
+          f"forward (rtol/atol 1e-4); {ms:.1f} ms; {card}")
+    check(bad == 0, "the replica forward differs from the unsplit one")
+
+
 def profile_call(fn, what: str) -> None:
     """One call of ``fn`` under the profiler: the card's busy share and
     its top kernels."""
@@ -3438,6 +3743,7 @@ def main() -> int:
     by_path["diffusion_serve"], by_path["diffusion_train"] = \
         run_diffusion_path(profile=profile)
     by_path["cells"] = run_cells_path()
+    by_path["multi_device"] = run_multi_device_path()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -21,6 +21,13 @@ LM state interchanges with the reference's in both directions, bit for
 bit (the LM parameter trees are the same).  A detector's convolution
 weights are OIHW here and HWIO in the reference, so its files belong to
 one package each.
+
+On a mesh (``torch.distributed``), a sharded tree is saved whole:
+:func:`save_gathered` assembles each leaf from every rank's block and
+rank 0 writes it, with :func:`mesh_signature` in the manifest; after a
+re-mesh, :func:`restore_local` reads the full arrays on each rank and
+takes the rank's block on the new mesh.  The files are the same either
+way.
 """
 
 from __future__ import annotations
@@ -163,3 +170,36 @@ class CheckpointManager:
                     f"leaf shape mismatch: {tuple(tpl.shape)} vs {arr.shape}")
         return treedef.unflatten([_from_host(a, t)
                                   for a, t in zip(restored, leaves)])
+
+
+def mesh_signature(mesh) -> dict:
+    """The manifest's ``mesh`` entry: a ``DeviceMesh``'s or a
+    ``launch.mesh.MeshSpec``'s shape and axis names."""
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    return {"shape": [int(n) for n in mesh.shape], "axes": list(names)}
+
+
+def save_gathered(manager: CheckpointManager, step: int, local_state, mesh,
+                  specs) -> None:
+    """Save a tree of every rank's blocks (``specs``: one ``P`` for every
+    leaf or a tree of them) as full arrays: each leaf is gathered on every
+    rank, the mesh's first rank writes (:meth:`CheckpointManager.save`, under
+    :func:`mesh_signature`), and no rank returns before the step is
+    committed.  Every rank of ``mesh`` calls it."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import map_specs
+
+    full = map_specs(lambda x, s: C.gather(x, mesh, s), local_state, specs)
+    if not any(mesh.get_coordinate()):  # the mesh's first rank writes
+        manager.save(step, full, mesh_signature(mesh))
+    C.barrier(mesh)
+
+
+def restore_local(manager: CheckpointManager, step: int, like, mesh, specs):
+    """The rank's blocks on ``mesh`` of the full arrays saved at ``step``
+    (``like``: a template tree of the full shapes)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import map_specs
+
+    return map_specs(lambda x, s: C.local_shard(x, mesh, s).clone(),
+                     manager.restore(step, like), specs)

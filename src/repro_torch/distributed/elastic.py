@@ -14,6 +14,9 @@ needs and is unit-tested at simulation level:
     programs and checkpoint layouts), (b) shrinks ``data``/``pod``
     (pure-DP axes shrink freely: batch re-divides, FSDP shards
     re-gather from the full-array checkpoint);
+  * ``remesh`` — brings a plan up as a ``torch.distributed`` device
+    mesh over the first ``devices_used`` ranks (the port's own: the
+    reference makes a ``jax.make_mesh`` of the plan in its scripts);
   * ``StragglerPolicy`` — skip-slowest-microbatch accounting: a
     straggler's microbatch is dropped for the step and the gradient
     rescaled, bounding step time at the p50+margin instead of the max.
@@ -121,6 +124,25 @@ def remesh_plan(original_shape: tuple[int, ...],
         "batch_scale": (best_data * best_pod) / (data0 * pod0),
         "checkpoint_compatible": True,
     }
+
+
+def remesh(plan: dict, device=None):
+    """A ``DeviceMesh`` of ``plan`` (:func:`remesh_plan`'s result) over
+    the first ``plan["devices_used"]`` ranks of the running process
+    group, on ``device``'s type (the card unless the caller names
+    another).  Every rank of the group calls it, since the mesh's groups
+    are made collectively; the ranks past ``devices_used`` sit out: their
+    ``mesh.get_coordinate()`` is None and they take no part in the
+    mesh's collectives.  Restore on the new mesh from the full-array
+    checkpoint (``checkpoint.restore_local``)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.device import resolve_device
+
+    ranks = torch.arange(plan["devices_used"]).reshape(plan["shape"])
+    return DeviceMesh(resolve_device(device).type, ranks,
+                      mesh_dim_names=tuple(plan["axes"]))
 
 
 def serving_scale_plan(total_devices: int, n_pods: int) -> dict:

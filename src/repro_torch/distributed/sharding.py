@@ -20,14 +20,16 @@ param paths; the first match wins.  ``spec_tree`` builds the full spec
 tree for any param tree.  PyTorch has no ``PartitionSpec`` and no
 ``NamedSharding``: :class:`P` holds a spec as JAX's does (per dimension
 ``None``, an axis name or a tuple of names), and :func:`named` pairs it
-with a :class:`~repro_torch.launch.mesh.MeshSpec`.  The port runs its
-models on one device, so the cost analysis (``launch/cells.py``) reads
-these rules and nothing partitions a tensor yet: the activation helpers
-at the end (``constrain``, ``no_activation_constraints``,
-``current_mesh``, ``mesh_axis_size``) are the identity, a no-op,
-``None`` and 1, which is what the reference's give outside a mesh.  The
-multi-device path (``torch.distributed`` in place of ``shard_map``)
-gives them meaning.
+with a :class:`~repro_torch.launch.mesh.MeshSpec`.  The cost analysis
+(``launch/cells.py``) reads these rules and their spec trees.
+
+The multi-device path runs one process a rank over ``torch.distributed``
+(:mod:`repro_torch.distributed.collectives`): :func:`shard_map` runs a
+function on each rank's shards, and :func:`use_mesh` makes a
+``DeviceMesh`` the active one (the reference's ``with mesh:``), which
+:func:`current_mesh` and :func:`mesh_axis_size` read.  The axis sizes
+that :func:`set_mesh_axis_sizes` records for the cost analysis are a
+separate record: neither one reads the other.
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ import contextlib
 import dataclasses
 import math
 import re
+from contextvars import ContextVar
 from typing import Any, Sequence
+
+import torch
 
 from repro_torch import pytree
 
@@ -270,32 +275,102 @@ def detector_batch_specs() -> dict[str, P]:
 
 
 # --------------------------------------------------------------------------
-# activation constraints: the identity on one device
+# the active mesh, shard_map, activation constraints
 # --------------------------------------------------------------------------
+
+# the DeviceMesh of the running program (the reference reads JAX's
+# thread resources, which ``with mesh:`` sets)
+_ACTIVE_MESH: ContextVar = ContextVar("repro_torch_active_mesh",
+                                      default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``) the active mesh inside the block:
+    the twin of the reference's ``with mesh:``."""
+    token = _ACTIVE_MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE_MESH.reset(token)
 
 
 def current_mesh():
-    """The mesh of the running program: ``None``, as every program of
-    the port runs on one device."""
-    return None
+    """The active ``DeviceMesh`` (:func:`use_mesh`), or None."""
+    return _ACTIVE_MESH.get()
 
 
 def mesh_axis_size(name: str) -> int:
-    """Size of a mesh axis of the running program: 1 on one device."""
-    del name
-    return 1
+    """Size of an axis of the active mesh (1 if absent or no mesh)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    return dict(zip(mesh.mesh_dim_names, mesh.shape)).get(name, 1)
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over the tensors of ``tree``: ``specs`` is one
+    :class:`P` for every leaf or a tree of them matching ``tree``."""
+    if isinstance(specs, P):
+        return pytree.tree_map(
+            lambda x: fn(x, specs) if isinstance(x, torch.Tensor) else x,
+            tree)
+    spec_leaves = pytree.flatten(specs, lambda s: isinstance(s, P))[0]
+    leaves, treedef = pytree.flatten(tree)
+    return treedef.unflatten([fn(x, s) for x, s in zip(leaves, spec_leaves)])
+
+
+def shard_map(f, *, mesh, in_specs, out_specs):
+    """The reference's ``shard_map`` as SPMD over ``torch.distributed``:
+    every rank of ``mesh`` calls the returned function on the same global
+    inputs.  Each input becomes the rank's block by its spec
+    (``collectives.local_shard``), ``f`` runs on the blocks with ``mesh``
+    active (its collectives name the mesh's axes), and each output is
+    assembled from every rank's block by its spec
+    (``collectives.gather``); a ``P()`` output comes back as the rank
+    computed it.  ``in_specs`` holds one entry an argument, ``out_specs``
+    one an output (a single one for a single output); an entry is a
+    :class:`P` or a tree of them.
+
+    Autograd stops at the assembly, so the returned function refuses
+    inputs that require grad: differentiate ``f`` itself on each rank's
+    blocks (``collectives``' convention)."""
+    from repro_torch.distributed import collectives as C
+
+    def wrapped(*args):
+        if torch.is_grad_enabled() and any(
+                isinstance(x, torch.Tensor) and x.requires_grad
+                for x in pytree.leaves(args)):
+            raise RuntimeError(
+                "shard_map's assembly is not differentiable; differentiate "
+                "the per-rank function on its blocks")
+        local = [map_specs(lambda x, s: C.local_shard(x, mesh, s), a, s)
+                 for a, s in zip(args, in_specs)]
+        with use_mesh(mesh):
+            out = f(*local)
+        single = not isinstance(out_specs, tuple)
+        outs = (out,) if single else out
+        specs = (out_specs,) if single else out_specs
+        full = tuple(map_specs(lambda x, s: C.gather(x, mesh, s)
+                                if len(s) else x, o, s)
+                     for o, s in zip(outs, specs))
+        return full[0] if single else full
+
+    return wrapped
 
 
 @contextlib.contextmanager
 def no_activation_constraints():
-    """Disable in-model :func:`constrain` calls (a no-op: on one device
-    they do nothing)."""
+    """The reference disables its in-model layout hints inside a block;
+    the port's :func:`constrain` is the identity, so this does nothing."""
     yield
 
 
 def constrain(x, *spec):
-    """The reference's ``with_sharding_constraint`` outside a mesh: the
-    identity.  The port's models make no such call."""
+    """The reference's ``with_sharding_constraint``, a layout hint that
+    never changes a value: the identity.  The port runs SPMD, one process
+    a rank, so a tensor's layout is what each rank holds and there is no
+    partitioner to hint."""
     del spec
     return x
 

@@ -49,8 +49,10 @@ WHY = {
         "no SPMD partitioner: the sharded temporaries are not known (the "
         "count runs the whole step on one fake device)",
     "collective_bytes":
-        "the step runs on one device and dispatches no collective; the "
-        "multi-device path (torch.distributed) brings them",
+        "the cell's step runs whole on one device and dispatches no "
+        "collective; the per-rank functions of the multi-device path "
+        "count theirs (moe_block_a2a's all-to-alls, counted on a fake "
+        "process group), but no cell runs per rank yet",
 }
 
 

@@ -34,8 +34,10 @@ Model, with the reference's keys:
     a chain of elementwise ops that XLA fuses counts once there and once
     an op here; the matrix products' I/O count alike.
   * ``collectives`` / ``collective_bytes`` — operand bytes of the
-    ``c10d`` and ``_c10d_functional`` ops by the reference's kinds; 0 on
-    one device (the multi-device path brings ``torch.distributed``).
+    ``c10d`` and ``_c10d_functional`` ops by the reference's kinds, as
+    one rank sends them: a per-rank function (``moe_block_a2a``) counts
+    its exchanges when it runs on a (fake) process group; 0 on one
+    device.
   * ``n_ops`` — the ops charged (in place of ``n_computations``).
   * with ``detail``: ``top_flops`` and ``top_bytes``, (count, op) pairs
     by op, largest first.

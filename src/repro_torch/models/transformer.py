@@ -17,6 +17,10 @@ Three attention implementations, as in the reference:
 MoE (:func:`moe_block`): the reference's sort-based grouped dispatch
 (tokens stably sorted by expert id, a static capacity a expert, one
 grouped product a projection), with capacity overflow dropping picks.
+On a mesh whose ``model`` axis is larger than 1, a config with
+``moe_a2a`` and ``sequence_parallel`` takes :func:`moe_block_a2a`, the
+reference's all-to-all expert parallelism, one process a rank over
+``torch.distributed``.
 
 The parameters keep the reference's stacked ``(L, ...)`` layout, with
 dense weights as ``(d_in, d_out)``, so :func:`from_jax_params` is a copy;
@@ -44,6 +48,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (P, current_mesh,
+                                              mesh_axis_size, shard_map)
 from repro_torch.kernels.attention.ops import flash_attention
 from repro_torch.kernels.attention.ref import flash_attention_ref
 from repro_torch.models import layers as L
@@ -82,6 +89,11 @@ class TransformerConfig:
     compute_dtype: torch.dtype = torch.float32
     norm_eps: float = 1e-6
     remat: bool = True  # recompute layers and chunks in the backward
+    # the reference's mesh switches: a token slice a (data, model) rank
+    # (the residual stream's sequence sharded over ``model``), and with
+    # it the all-to-all expert parallelism (:func:`_use_moe_a2a`)
+    sequence_parallel: bool = False
+    moe_a2a: bool = False
 
     @property
     def policy(self) -> L.DtypePolicy:
@@ -113,14 +125,10 @@ def from_jax_config(cfg) -> TransformerConfig:
     """The reference's ``TransformerConfig`` -> the port's.
 
     Dtypes map by name; ``attention_impl="pallas"`` becomes ``"flash"``.
-    The fields the port does not have are dropped, each with no effect on
-    what one device computes:
-
-      * ``sequence_parallel``: shards the residual stream's sequence axis
-        over the mesh's ``model`` axis, a layout of a mesh;
-      * ``moe_a2a``: the reference's all-to-all expert parallelism, which
-        it takes only when the mesh's ``model`` axis is larger than 1
-        (``_use_moe_a2a``); on one device it runs :func:`moe_block`.
+    Every field carries, the mesh switches too: ``sequence_parallel`` and
+    ``moe_a2a`` select :func:`moe_block_a2a` when the active mesh's
+    ``model`` axis is larger than 1 (:func:`_use_moe_a2a`); with no mesh,
+    or one of ``model`` size 1, the block is :func:`moe_block`.
     """
     kw = {f.name: getattr(cfg, f.name)
           for f in dataclasses.fields(TransformerConfig)}
@@ -375,30 +383,13 @@ def moe_capacity(cfg: TransformerConfig, t: int) -> int:
                       * cfg.capacity_factor))
 
 
-def moe_block(p: Params, x: Tensor, cfg: TransformerConfig,
-              routes: list | None = None) -> tuple[Tensor, Tensor]:
-    """Top-k MoE with grouped dispatch.  ``x``: (T, D) flattened tokens.
-    Returns (out (T, D) in x's dtype, the Switch-style load-balancing aux
-    loss); with ``routes`` (a list) the call also appends its
-    :class:`Routing`.
-
-    The reference's function at one shard (G = 1): it splits the tokens
-    into one group per data-parallel device (``gcd(T, pod * data)``,
-    1 without a mesh), and the port runs on one device.  So every token
-    of the call (a prefill's whole batch, a decode step's B tokens) shares
-    the capacity of each expert (:func:`moe_capacity`).  Picks are ranked
-    within their expert by a stable sort on expert id (token order);
-    those past the capacity are dropped and contribute 0, their gates not
-    renormalised.  The three expert products
-    sum in float32 (:func:`_expert_products`), ``silu(gate) * up`` is
-    taken in float32 and cast, and the combine runs in the compute dtype.
-    """
-    t, d = x.shape
+def _route(p: Params, x: Tensor, cfg: TransformerConfig):
+    """The router of ``x`` (T, D): (float32 gates of each token's top-k
+    experts renormalised, their ids, the load-balancing aux loss)."""
+    t = x.shape[0]
     e, k = cfg.n_experts, cfg.moe_top_k
-    pol, cdt, dev = cfg.policy, cfg.compute_dtype, x.device
-
-    logits = L.dense({"w": p["router"]}, x, pol).to(torch.float32)  # (T, E)
-    probs = torch.softmax(logits, dim=-1)
+    logits = L.dense({"w": p["router"]}, x, cfg.policy).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)  # (T, E)
     # jax.lax.top_k puts the lower expert first among equal probabilities
     # (bf16 router logits tie at full width); torch.topk promises no
     # order, a stable descending sort keeps the index order of ties
@@ -407,19 +398,24 @@ def moe_block(p: Params, x: Tensor, cfg: TransformerConfig,
     gate_vals, expert_ids = gate_vals[:, :k], expert_ids[:, :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-
-    # load-balancing aux loss
     me = probs.mean(dim=0)
     # picks per expert, a fixed-shape (E,) count (bincount's output
     # shape depends on the data, which a fake tensor cannot give)
-    counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, expert_ids.reshape(-1), torch.ones(t * k, device=dev))
+    counts = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+        0, expert_ids.reshape(-1), torch.ones(t * k, device=x.device))
     aux = e * torch.sum(me * counts / (t * k))
+    return gate_vals, expert_ids, aux
 
-    capacity = moe_capacity(cfg, t)
 
-    # each pick's rank within its expert: stable sort by expert id, then
-    # the offset from the expert's first pick (searchsorted, left side)
+def _dispatch(x: Tensor, expert_ids: Tensor, e: int, capacity: int):
+    """Each pick's capacity slot and the (E * capacity, D) buffer of the
+    kept picks' tokens, expert-major.  A pick's rank within its expert
+    comes from a stable sort by expert id (token order) and the offset
+    from the expert's first pick (searchsorted, left side); the picks
+    past the capacity are dropped.  Returns (slot (T, k) in (token, pick)
+    order, ``e * capacity`` where dropped; the buffer)."""
+    t, k = expert_ids.shape
+    dev = x.device
     fe = expert_ids.reshape(-1)
     order = torch.argsort(fe, stable=True)
     se = fe[order]
@@ -429,36 +425,164 @@ def moe_block(p: Params, x: Tensor, cfg: TransformerConfig,
                               e * capacity)
     slot = torch.empty_like(slot_sorted)
     slot[order] = slot_sorted
-    slot = slot.view(t, k)  # (token, pick) order; e * capacity: dropped
-    keep = slot < e * capacity
-    gathered = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=dev)
+    slot = slot.view(t, k)
+    gathered = torch.zeros((e * capacity + 1, x.shape[1]), dtype=x.dtype,
+                           device=dev)
     gathered[slot.reshape(-1)] = x.repeat_interleave(k, dim=0)
-    grouped = gathered[:-1].view(e, capacity, d)
+    return slot, gathered[:-1]
 
+
+def _experts(grouped: Tensor, p: Params, cdt: torch.dtype) -> Tensor:
+    """The SwiGLU experts on ``grouped`` (E, C, D): the three products
+    summed in float32 (:func:`_expert_products`), ``silu(gate) * up``
+    taken in float32 and cast; (E, C, D) in the compute dtype."""
     hidden = _expert_products(grouped, p["w_gate"], cdt)
     F.silu(hidden, inplace=True)
     hidden.mul_(_expert_products(grouped, p["w_up"], cdt))
     hidden = hidden.to(cdt)
     expert_out = _expert_products(hidden, p["w_down"], cdt).to(cdt)
     del hidden  # before the combine's buffers: 1.3 GB at mixtral's prefill
-    expert_out = expert_out.view(e * capacity, d)
+    return expert_out
 
-    # the combine, in the compute dtype, adding each token's k
-    # contributions in increasing expert order, one rounding an addition,
-    # as the reference's scatter-add over the expert-sorted picks does
-    # (and deterministic, where an atomic scatter-add is not)
+
+def _combine(expert_out: Tensor, slot: Tensor, expert_ids: Tensor,
+             gate_vals: Tensor, cdt: torch.dtype) -> Tensor:
+    """Each token's kept picks' expert outputs (``expert_out``: (E *
+    capacity, D)) times their gates, in the compute dtype, adding a
+    token's k contributions in increasing expert order, one rounding an
+    addition, as the reference's scatter-add over the expert-sorted picks
+    does (and deterministic, where an atomic scatter-add is not)."""
+    n_slots = expert_out.shape[0]
     by_expert = expert_ids.argsort(dim=1)
     slot_e = slot.gather(1, by_expert)
-    contrib = expert_out[torch.clamp(slot_e, max=e * capacity - 1)] \
+    contrib = expert_out[torch.clamp(slot_e, max=n_slots - 1)] \
         * gate_vals.gather(1, by_expert).to(cdt)[..., None]
-    contrib = torch.where(keep.gather(1, by_expert)[..., None], contrib,
-                          torch.zeros((), dtype=cdt, device=dev))
+    contrib = torch.where((slot_e < n_slots)[..., None], contrib,
+                          torch.zeros((), dtype=cdt, device=contrib.device))
     out = contrib[:, 0]
-    for j in range(1, k):
+    for j in range(1, slot.shape[1]):
         out = out + contrib[:, j]
+    return out
+
+
+def moe_block(p: Params, x: Tensor, cfg: TransformerConfig,
+              routes: list | None = None) -> tuple[Tensor, Tensor]:
+    """Top-k MoE with grouped dispatch.  ``x``: (T, D) flattened tokens.
+    Returns (out (T, D) in x's dtype, the Switch-style load-balancing aux
+    loss); with ``routes`` (a list) the call also appends its
+    :class:`Routing`.
+
+    The reference's function at one shard (G = 1): it splits the tokens
+    into one group per data-parallel device (``gcd(T, pod * data)``) and
+    dispatches each group apart.  The port runs one process a rank, so a
+    rank calls it on the tokens it holds, and every token of the call (a
+    prefill's whole batch, a decode step's B tokens) shares the capacity
+    of each expert (:func:`moe_capacity`).  Picks are ranked within their
+    expert by a stable sort on expert id (token order); those past the
+    capacity are dropped and contribute 0, their gates not renormalised.
+    The three expert products sum in float32 (:func:`_expert_products`),
+    ``silu(gate) * up`` is taken in float32 and cast, and the combine
+    runs in the compute dtype.
+    """
+    e, cdt = cfg.n_experts, cfg.compute_dtype
+    d = x.shape[1]
+    gate_vals, expert_ids, aux = _route(p, x, cfg)
+    capacity = moe_capacity(cfg, x.shape[0])
+    slot, gathered = _dispatch(x, expert_ids, e, capacity)
+    expert_out = _experts(gathered.view(e, capacity, d), p, cdt)
+    out = _combine(expert_out.view(e * capacity, d), slot, expert_ids,
+                   gate_vals, cdt)
     if routes is not None:
-        routes.append(Routing(expert_ids, keep))
+        routes.append(Routing(expert_ids, slot < e * capacity))
     return out.to(x.dtype), aux
+
+
+def _flat_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data", "model")
+                 if a in mesh.mesh_dim_names)
+
+
+def _use_moe_a2a(cfg: TransformerConfig) -> bool:
+    """The reference's switch: the all-to-all block when the config asks
+    for it and the active mesh's ``model`` axis is larger than 1 and
+    divides the experts."""
+    if not (cfg.moe and cfg.moe_a2a and cfg.sequence_parallel):
+        return False
+    m = mesh_axis_size("model")
+    return m > 1 and cfg.n_experts % m == 0
+
+
+MOE_EXPERT_SPEC = P("model", None, None)
+
+
+def moe_local_experts(p: Params, mesh) -> Params:
+    """A rank's part of a whole MoE layer's tree for
+    :func:`moe_block_a2a`: the router as it is, and the rank's
+    ``E / model`` experts of each stack (spec ``P("model", None,
+    None)``)."""
+    return {k: v if k == "router" else C.local_shard(v, mesh,
+                                                     MOE_EXPERT_SPEC)
+            for k, v in p.items()}
+
+
+def moe_block_a2a(p: Params, x: Tensor, cfg: TransformerConfig,
+                  mesh=None) -> tuple[Tensor, Tensor]:
+    """Explicit all-to-all expert parallelism, run by every rank of
+    ``mesh`` (the active mesh by default) on its own tokens.
+
+    ``x``: the rank's (tl, D) tokens, disjoint across the mesh's
+    ``(pod, data, model)`` ranks; ``p``: the replicated router and the
+    rank's ``E / model`` experts (:func:`moe_local_experts`).  Each rank
+    routes and dispatches its tokens as :func:`moe_block` does (the same
+    capacity rule at tl tokens), sends each model rank the slots of its
+    experts (one all-to-all of (model, E_loc * capacity, D) over
+    ``model``), runs its experts on every source's slots, sends the
+    outputs back by the reverse exchange and combines its tokens.  The
+    wire volume a link is E * capacity * D each way: tokens * k * D /
+    model ranks, with no drops.  Returns (out (tl, D), the aux loss
+    averaged over every rank).  With one ``model`` rank the exchange
+    moves nothing and the block is :func:`moe_block` on ``x``.
+    """
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        raise RuntimeError("moe_block_a2a needs a mesh (use_mesh)")
+    e, cdt = cfg.n_experts, cfg.compute_dtype
+    tl, d = x.shape
+    m = C.axis_size(mesh, "model")
+    e_loc = e // m
+    gate_vals, expert_ids, aux_loc = _route(p, x, cfg)
+    capacity = moe_capacity(cfg, tl)
+    slot, gathered = _dispatch(x, expert_ids, e, capacity)
+    # dispatch: block i (model rank i's experts) to rank i
+    recv = C.all_to_all(gathered.view(m, e_loc * capacity, d), "model", mesh)
+    grouped = recv.view(m, e_loc, capacity, d).transpose(0, 1) \
+        .reshape(e_loc, m * capacity, d)
+    eo = _experts(grouped, p, cdt)
+    back = eo.view(e_loc, m, capacity, d).transpose(0, 1) \
+        .reshape(m, e_loc * capacity, d)
+    mine = C.all_to_all(back, "model", mesh).view(e * capacity, d)
+    out = _combine(mine, slot, expert_ids, gate_vals, cdt)
+    aux = C.pmean(aux_loc, _flat_axes(mesh), mesh)
+    return out.to(x.dtype), aux
+
+
+def _moe_a2a_global(p: Params, x: Tensor, cfg: TransformerConfig
+                    ) -> tuple[Tensor, Tensor]:
+    """:func:`moe_block_a2a` on the whole (T, D) tokens, replicated on
+    every rank of the active mesh: each rank takes its token slice and
+    its experts, and the outputs are gathered back (the reference's
+    ``shard_map`` of the block).  Inference only: the gathering refuses
+    autograd, so a train step differentiates :func:`moe_block_a2a` on
+    each rank's blocks."""
+    mesh = current_mesh()
+    flat = _flat_axes(mesh)
+    blk = shard_map(
+        lambda p, x: moe_block_a2a(p, x, cfg, mesh), mesh=mesh,
+        in_specs=({"router": P(), "w_gate": MOE_EXPERT_SPEC,
+                   "w_up": MOE_EXPERT_SPEC, "w_down": MOE_EXPERT_SPEC},
+                  P(flat, None)),
+        out_specs=(P(flat, None), P()))
+    return blk(p, x)
 
 
 def _finish_block(lp: Params, x: Tensor, attn_out: Tensor,
@@ -472,7 +596,10 @@ def _finish_block(lp: Params, x: Tensor, attn_out: Tensor,
     h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if not cfg.moe:
         return x + dense_mlp(lp["mlp"], h2, cfg), None
-    out, aux = moe_block(lp["moe"], h2.reshape(b * s, d), cfg, routes)
+    if _use_moe_a2a(cfg):
+        out, aux = _moe_a2a_global(lp["moe"], h2.reshape(b * s, d), cfg)
+    else:
+        out, aux = moe_block(lp["moe"], h2.reshape(b * s, d), cfg, routes)
     return x + out.reshape(b, s, d), aux
 
 

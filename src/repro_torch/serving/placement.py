@@ -19,10 +19,11 @@ each sharded over its group's ``data`` axis:
     variant popularity past a threshold.  Every variant maps to a group
     at ALL times (popularity is floored, groups are swapped
     atomically), so a rebalance can never strand a queued request.
-  * ``ReplicaGroup.mesh`` (the reference's ``shard_map`` mesh) raises
-    ``NotImplementedError``: the forward sharded over a multi-device
-    group is the port's multi-device slice, still to come, and
-    ``TorchDetectorBackend`` refuses groups of more than one device.
+  * ``ReplicaGroup.mesh`` describes a group of real devices as a
+    one-axis ``("data",)`` mesh; ``TorchDetectorBackend`` serves such a
+    group with one replica of the variant a device, each running an
+    equal slice of the padded batch (the reference's ``shard_map`` over
+    that mesh).
 
 Devices may be real ``torch.device`` objects (CUDA devices) or plain
 placeholders (ints) for simulation backends: the oracle pod prices the
@@ -57,17 +58,16 @@ class ReplicaGroup:
 
     @property
     def mesh(self):
-        """The reference's 1-axis ``("data",)`` ``shard_map`` mesh.  The
-        port has no sharded forward yet: per-device replicas that split
-        the padded batch come with the multi-device slice."""
+        """The group's 1-axis ``("data",)`` mesh over its devices (real
+        devices only), a ``launch.mesh.MeshSpec``: the replicas run from
+        one process, so no process group is needed."""
+        from repro_torch.launch.mesh import MeshSpec
+
         if self.is_virtual:
             raise TypeError(
                 f"group {self.index} holds virtual device slots "
                 f"{self.devices}; a mesh needs real devices")
-        raise NotImplementedError(
-            "the forward sharded over a replica group is not ported yet "
-            "(the multi-device slice: per-device replicas splitting the "
-            "padded batch)")
+        return MeshSpec((self.n_devices,), ("data",), self.devices)
 
     def shard_batch(self, b: int) -> int:
         """Smallest batch >= ``b`` divisible by the group width (the

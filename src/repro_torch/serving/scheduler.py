@@ -527,6 +527,7 @@ class TorchDetectorBackend(FrameStaging):
             resolutions=tuple(sorted({c.input_size for c in self.cfgs})))
         self._shapes: set = set()
         self.trace_count = 0  # distinct (variant, padded batch) shapes run
+        self._replicas: dict = {}  # (variant, device) -> its parameters
         # fused tick: batched gnomonic projection (one launch per chunk
         # instead of one `_project` per crop) + a cross-tick crop cache
         # keyed on pitch-quantised region geometry.  `fused=False`
@@ -584,13 +585,24 @@ class TorchDetectorBackend(FrameStaging):
                                  scores[0].cpu().numpy(),
                                  classes[0].cpu().numpy(), region, size)
 
-    def _batched_fn(self, idx: int, b_pad: int):
+    def _batched_fn(self, idx: int, b_pad: int, group=None):
         """The (apply + masked decode) forward of one (variant, padded
-        batch) shape; counts the distinct shapes in ``trace_count``."""
+        batch) shape; counts the distinct shapes in ``trace_count``.
+
+        With a replica group of more than one device (the multi-device
+        serving path), the forward splits the padded batch into equal
+        row slices in device order and runs each on its own device with
+        that device's replica of the variant's parameters (copied once,
+        :meth:`_replica_params`); every slice is launched before any
+        result is copied back, and the rows return to the backend's
+        device in order.  Rows are independent, so each slice decodes
+        as the unsplit batch would."""
         from repro_torch.models import detector as det_mod
 
-        if (idx, b_pad) not in self._shapes:
-            self._shapes.add((idx, b_pad))
+        key = (idx, b_pad) if group is None or group.n_devices == 1 else (
+            idx, b_pad, tuple(group.devices))
+        if key not in self._shapes:
+            self._shapes.add(key)
             self.trace_count += 1
         cfg = self.cfgs[idx]
 
@@ -599,7 +611,29 @@ class TorchDetectorBackend(FrameStaging):
             return det_mod.decode(outs, cfg, self.conf,
                                   max_det=self.max_det, valid=valid)
 
-        return forward
+        if len(key) == 2:
+            return forward
+        devices = group.mesh.devices
+        rows = b_pad // len(devices)
+
+        def sharded(params, imgs, valid):
+            del params  # each slice runs on its device's replica
+            parts = [forward(self._replica_params(idx, dev),
+                             imgs[i * rows:(i + 1) * rows].to(dev),
+                             valid[i * rows:(i + 1) * rows].to(dev))
+                     for i, dev in enumerate(devices)]
+            return tuple(torch.cat([p[j].to(self.device) for p in parts])
+                         for j in range(3))
+
+        return sharded
+
+    def _replica_params(self, idx: int, device) -> dict:
+        """Variant ``idx``'s parameters on ``device``, copied once."""
+        p = self._replicas.get((idx, device))
+        if p is None:
+            p = self._replicas[(idx, device)] = _params_to(self.params[idx],
+                                                            device)
+        return p
 
     # ---- cross-tick crop cache -------------------------------------
     #
@@ -730,12 +764,10 @@ class TorchDetectorBackend(FrameStaging):
         work of one with the device work of the next.  With
         ``fused=True`` (default) a chunk's crops project in ONE batched
         launch (cache hits skip projection); ``fused=False`` keeps the
-        staged per-crop path.  Multi-device replica groups (``group``)
-        are not ported yet.
+        staged per-crop path.  With a multi-device replica ``group`` the
+        padded batch also rounds up to a multiple of the group's width
+        and splits over its devices (:meth:`_batched_fn`).
         """
-        if group is not None and getattr(group, "n_devices", 1) > 1:
-            raise NotImplementedError(
-                "sharded replica groups are not ported yet")
         idx = variant.index - 1
         cfg = self.cfgs[idx]
         size = self.buckets.bucket_resolution(cfg.input_size)
@@ -751,11 +783,15 @@ class TorchDetectorBackend(FrameStaging):
                                    for f, r in chunk])
                 geoms = [None] * b
             b_pad = self.buckets.pad_batch(b)
+            if group is not None and group.n_devices > 1:
+                # pad further to a group-width multiple so the batch
+                # splits evenly over the group's devices
+                b_pad = group.shard_batch(b_pad)
             if b_pad > b:
                 pis = torch.cat(
                     [pis, pis.new_zeros((b_pad - b,) + tuple(pis.shape[1:]))])
             valid = torch.arange(b_pad, device=self.device) < b
-            boxes, scores, classes = self._batched_fn(idx, b_pad)(
+            boxes, scores, classes = self._batched_fn(idx, b_pad, group)(
                 self.params[idx], pis, valid)
             launched.append((chunk, geoms, boxes, scores, classes))
 

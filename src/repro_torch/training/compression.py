@@ -10,8 +10,9 @@ carrying the rounding or dropped part to the next step in a
     entries of largest magnitude as (values, int32 indices).
 
 ``compression_ratio`` gives the payload's bytes over the dense float32
-gradients'.  The reference's ``compressed_psum_step`` (the all-reduce
-over a mesh axis) comes with the multi-device path.
+gradients'.  ``compressed_psum_step`` is the data-parallel all-reduce of
+the compressed gradients over a mesh axis, run by every rank of the axis
+(``torch.distributed``; the reference calls it inside ``shard_map``).
 """
 
 from __future__ import annotations
@@ -102,3 +103,36 @@ def compression_ratio(payload, like) -> float:
     dense = sum(nbytes(l) for l in pytree.leaves(like))
     wire = sum(nbytes(l) for l in pytree.leaves(payload))
     return wire / dense
+
+
+# -- the all-reduce over a mesh axis -----------------------------------------
+
+
+def compressed_psum_step(grads, state: CompressionState, axis: str,
+                         mode: str = "bf16", mesh=None):
+    """All-reduce ``grads`` over ``axis`` of ``mesh`` (the active mesh by
+    default) with compression and error feedback; every rank of the axis
+    calls it with its own gradients and state.
+
+    Each rank compresses its gradients; the bf16 payload is summed in
+    float32, or top-k's payload is sent as its dense scatter (the indices
+    differ between ranks; on a fabric this would be a gather of (index,
+    value) pairs, and ``compression_ratio`` prices it).  Returns (the
+    float32 mean over the axis's n ranks, the rank's new state)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import current_mesh
+
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        raise RuntimeError("compressed_psum_step needs a mesh (use_mesh)")
+    n = C.axis_size(mesh, axis)
+    if mode == "bf16":
+        payload, new_state = bf16_compress(grads, state)
+        dense = bf16_decompress(payload)
+    elif mode == "topk":
+        payload, new_state = topk_compress(grads, state)
+        dense = topk_decompress(payload, grads)
+    else:
+        raise ValueError(f"unknown compression mode {mode!r}")
+    mean = pytree.tree_map(lambda s: C.psum(s, axis, mesh) / n, dense)
+    return mean, new_state

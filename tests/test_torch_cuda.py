@@ -44,6 +44,15 @@ The launch layer (no kernel: its cells' attention is plain or
 ``chunked``): a smoke cell counted on fake CUDA tensors, on real ones
 and on fake CPU tensors alike, and the counter refusing a step that
 launches a kernel.
+
+The multi-device path (no kernel: the all-to-all block's products are
+the MoE block's), on one card, so over an NCCL process group of world
+size 1 (NCCL refuses two ranks on one GPU): ``moe_block_a2a`` on a
+(1, 1) mesh against ``moe_block`` at the mixtral smoke config, in
+float32 and bf16, with and without drops (output, aux and every
+gradient of ``sum(out**2)`` bit for bit: at one model rank the exchange
+moves nothing), and ``compressed_psum_step`` on the card equal to its
+compressor's payload, bit for bit.
 """
 
 from __future__ import annotations
@@ -1087,3 +1096,66 @@ def test_cuda_analyze_refuses_a_flash_launch(cuda):
         analyze(lambda *a: tattn.flash_attention(*a, causal=True), q, k, v)
     assert _build.launch_counts()["flash_attention_wgmma"] == \
         before.get("flash_attention_wgmma", 0) + 1
+
+
+# -- the multi-device path, world size 1 -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as tcoll
+
+    mesh = tcoll.init_mesh((1, 1), ("data", "model"), "cuda", rank=0,
+                           store=str(tmp_path_factory.mktemp("nccl")
+                                     / "store"))
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cf", [1.0, 16.0])
+def test_cuda_moe_a2a_world1_is_moe_block(nccl_mesh, dtype, cf):
+    from repro_torch.distributed.sharding import use_mesh
+
+    cfg = dataclasses.replace(tmixtral.smoke_config(), capacity_factor=cf,
+                              param_dtype=dtype, compute_dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = tlm._layer_params(tlm.init_params(gen, cfg, "cuda"), 0)["moe"]
+    x = torch.randn(256, cfg.d_model, generator=gen, device="cuda",
+                    dtype=dtype)
+    res = []
+    with use_mesh(nccl_mesh):
+        for blk in (tlm.moe_block, tlm.moe_block_a2a):
+            pg = {k: v.clone().requires_grad_() for k, v in p.items()}
+            out, aux = blk(pg, x, cfg)
+            (out.float() ** 2).sum().backward()
+            res.append([out.detach(), aux.detach()]
+                       + [pg[k].grad for k in sorted(pg)])
+    assert all(torch.equal(a, b) for a, b in zip(*res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "topk"])
+def test_cuda_compressed_psum_world1(nccl_mesh, mode):
+    from repro_torch.training import compression as tcomp
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g = {"a": torch.randn(64, 96, generator=gen, device="cuda"),
+         "b": torch.randn(333, generator=gen, device="cuda")}
+    st = tcomp.CompressionState.zeros_like(g)
+    mean, new = tcomp.compressed_psum_step(g, st, "data", mode, nccl_mesh)
+    if mode == "bf16":
+        payload, want_st = tcomp.bf16_compress(g, st)
+        want = tcomp.bf16_decompress(payload)
+    else:
+        payload, want_st = tcomp.topk_compress(g, st)
+        want = tcomp.topk_decompress(payload, g)
+    for k in g:
+        assert mean[k].device.type == "cuda"
+        assert torch.equal(mean[k], want[k]), k
+        assert torch.equal(new.residual[k], want_st.residual[k]), k

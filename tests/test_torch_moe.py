@@ -345,10 +345,11 @@ def test_configs_match_reference(jmod, tmod):
     for make in ("full_config", "smoke_config"):
         jcfg = getattr(jmod, make)()
         assert TT.from_jax_config(jcfg) == getattr(tmod, make)()
-        # the mesh fields are dropped; the loss's chunk and remat carry
-        assert TT.from_jax_config(dataclasses.replace(
-            jcfg, moe_a2a=True, sequence_parallel=True)) \
-            == getattr(tmod, make)()
+        # the mesh switches, the loss's chunk and remat carry
+        carried = TT.from_jax_config(dataclasses.replace(
+            jcfg, moe_a2a=True, sequence_parallel=True))
+        assert carried == dataclasses.replace(
+            getattr(tmod, make)(), moe_a2a=True, sequence_parallel=True)
         carried = TT.from_jax_config(dataclasses.replace(
             jcfg, remat=not jcfg.remat, ce_chunk=7))
         assert (carried.remat, carried.ce_chunk) == (not jcfg.remat, 7)

@@ -401,10 +401,16 @@ def test_group_mesh_names_the_multi_device_slice():
     virtual = t_place.VariantPlacement.virtual(variants, 2)
     with pytest.raises(TypeError, match="virtual"):
         virtual.groups[0].mesh
-    real = t_place.VariantPlacement(variants, devices=[torch.device("cpu")])
+    devices = [torch.device("cpu", i) for i in range(4)]
+    real = t_place.VariantPlacement(variants, devices=devices)
     assert not real.groups[0].is_virtual
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        real.groups[0].mesh
+    seen = []
+    for g in real.groups:
+        mesh = g.mesh
+        assert mesh.axis_names == ("data",)
+        assert mesh.shape == (g.n_devices,) and mesh.devices == g.devices
+        seen += list(mesh.devices)
+    assert sorted(seen, key=lambda d: d.index) == devices
 
 
 # -- the serve launcher ----------------------------------------------------------
