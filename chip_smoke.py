@@ -108,7 +108,7 @@ Phases, in order; any failure exits non-zero:
    are in ``run_moe_path``): mixtral-8x22b (8 of 56 layers, 8 experts
    top-2, window 4096) prefills 2 prompts of 8192 tokens and decodes 32
    greedy tokens; qwen3-moe-235b-a22b (2 of 94 layers, 128 experts
-   top-8) prefills 1 x 4096.  Prefill ms per request, decode ms per
+   top-8) prefills 1 x 4096 and decodes 16 greedy tokens.  Prefill ms per request, decode ms per
    token, the generated tokens' digest, the picks each layer dropped in
    prefill and in decode, and the launches are printed (the tensor-core
    kernel once a layer of each prefill, the SIMT kernel never); logits
@@ -238,7 +238,52 @@ Phases, in order; any failure exits non-zero:
    replica forward split over every card against the unsplit forward;
    with one, a line that says the split was not run here and names the
    CPU test that holds it.  Launch counts are set to 0 before the phase
-   and read after.
+   and read after;
+14. the OmniSense server under its other policies, on the full
+   ``PAPER_LADDER`` at 1920x3840 (phase 5's set-up, ``tick_server``'s
+   tick lines): (a) 4 streams for 3 ticks under ``deadline`` beside the
+   same streams under ``sync``: each frame's detections within
+   ``POLICY_ATOL`` (equal counts and categories; bit-equality printed);
+   (b) 4 streams for 4 ticks under ``async``, then ``flush``: per tick
+   the carried requests, the frame uploads (the staged ones, and those of
+   chunks holding a carried request, which upload each of their frames
+   again) and crop-cache hits; every request served a tick after its
+   emission against ``infer_sroi`` on its own frame at the geometry it
+   was served at (``PER_REQUEST_ATOL``), a control on its stream's next
+   frame that must fail; nothing queued, in flight or staged after the
+   flush; the whole pod run twice from the same seeds, its ``ServeStats``
+   fingerprint and per-frame detection digests bit-equal; (c) 4 streams
+   for 2 ticks with the loops' budget raised (``RUNG_BUDGETS``) until the
+   allocator puts two SRoIs of tick 1 on yolo-p6-1280: its chunks through
+   ``project_srois_batched`` at S=1280, the crops held to the float64 map
+   (twice the plain version's distance + 5e-5), each request to
+   ``infer_sroi``, the kernel's ms on the largest chunk beside its bound;
+   (d) the open-loop fleet: 2 pods over 4 mixed streams (phase 6's
+   construction, no placement), affinity routing, SLO admission at 2 s,
+   the serve launcher's arrivals (0.5 fps, jitter 0.2, seed 0, 8 frames
+   a stream), frames rendered when asked for and dropped once served:
+   the fleet report, frames by task and by pod, uploads, the NMS rounds
+   by backend (each round the ``auto`` rule sends to the card launches
+   the SphIoU and the greedy kernel once), and a second run bit-equal.
+   Launch counts are set to 0 before (a)-(c) (``serving_policies``; the
+   per-request checks' ``gnomonic_sample`` included) and before (d)'s
+   first run (``fleet``, the action path's counted apart).  Then the
+   batched NMS is timed on the host and on the card at every
+   ``NMS_CROSSOVER`` shape (what ``auto``'s threshold is read from),
+   and the kernels' keep mask is held bit for bit to the plain
+   version's on the card there and at every shape the rule sent to the
+   card in phases 5, 6 and 14;
+15. granite-34b's dense serving at published width (8 of 88 layers, MQA:
+   48 query heads on one KV head of 128, bf16, ``attention_impl=
+   "flash"``): ``lm_prefill_step`` on 1 x 4096 tokens and 32 greedy
+   ``lm_decode_step``s, prefill ms a request and decode ms a token beside
+   the card, the tokens' digest equal over two runs, the logits within
+   ``LM_LOGIT_ATOL`` of ``chunked`` and each layer's attention as phase 7
+   holds it; ``flash_attention_wgmma`` 8 launches (``lm_granite``).
+   Phase 8 also decodes qwen3-moe 16 greedy tokens and holds its first
+   decode step after a 1024-token prompt to a prefill over the prompt and
+   that token (``check_moe_decode``: a capacity factor at which no pick
+   drops; the control with the token changed fails).
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -260,8 +305,9 @@ The last lines are the kernels' JSON record (with each kernel's launches
 by path: the frame loop of phase 5, the mixed pod of phase 6, the LM of
 phase 7, the MoE LM of phase 8, the LM's and the detector's training of
 phase 9, the vision serve and train paths of phase 10, the diffusion
-serve and train paths of phase 11, the cells of phase 12 and the
-multi-device path of phase 13, all seven 0 on one card),
+serve and train paths of phase 11, the cells of phase 12, the
+multi-device path of phase 13, all seven 0 on one card, the serving
+policies and the fleet of phase 14 and granite of phase 15),
 the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
@@ -270,6 +316,8 @@ checkout of the repository, it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import json
 import math
 import re
@@ -373,7 +421,10 @@ def check(cond: bool, what: str) -> None:
         raise PhaseError(what)
 
 
+@functools.lru_cache(maxsize=None)
 def card_line() -> str:
+    """The card's name and power limit (read once: printed beside every
+    time)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -528,7 +579,6 @@ def check_project_srois(records: dict) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.core.projection import gnomonic_coords
     from repro_torch.kernels.gnomonic import ops
     from repro_torch.kernels.gnomonic.ref import (project_sroi_f64,
                                                   project_srois_ref)
@@ -579,16 +629,7 @@ def check_project_srois(records: dict) -> None:
         plain_ms = time_ms(lambda: project_srois_ref(
             frames, torch.tensor(idx), torch.from_numpy(centers),
             torch.from_numpy(fovs), (s, s)), reps=5)
-        # bytes: the distinct texels the crops read (per frame, from the
-        # plain version's maps), the geometry, and the PIs written
-        texels = []
-        for i in range(b):
-            u, v = gnomonic_coords(float(centers[i, 0]), float(centers[i, 1]),
-                                   fovs[i].tolist(), (s, s), (h, w), dev)
-            texels.append(texel_ids(u, v, h, w) + idx[i] * h * w)
-        n_texels = int(torch.unique(torch.cat(texels)).numel())
-        n_bytes = n_texels * c * 4 + b * (4 + 16) + b * s * s * c * 4
-        b_ms, b_by = bound_ms(n_bytes, b * s * s * (60 + 9 * c))
+        b_ms, b_by = project_bound(frames, idx, centers, fovs, s)
         print(f"kernel project_srois_batched B={b} S={s}: 4 distinct "
               f"{h}x{w}x{c} frames, ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
               f"library_ms null, bound_ms {b_ms:.5f} ({b_by})")
@@ -597,6 +638,28 @@ def check_project_srois(records: dict) -> None:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 shape=f"B={b} S={s} from 4x{h}x{w}x{c} f32")
+
+
+def project_bound(frames, idx, centers, fovs, s: int) -> tuple[float, str]:
+    """``bound_ms`` of ``project_srois_batched`` on these inputs: the
+    distinct texels the crops read (per frame, from the plain version's
+    maps), the geometry and the PIs written, against the float32 work of
+    the map and the bilinear blend."""
+    import torch
+
+    from repro_torch.core.projection import gnomonic_coords
+
+    _, h, w, c = frames.shape
+    b = len(idx)
+    texels = []
+    for i in range(b):
+        u, v = gnomonic_coords(float(centers[i][0]), float(centers[i][1]),
+                               [float(x) for x in fovs[i]], (s, s), (h, w),
+                               frames.device)
+        texels.append(texel_ids(u, v, h, w) + idx[i] * h * w)
+    n_texels = int(torch.unique(torch.cat(texels)).numel())
+    n_bytes = n_texels * c * 4 + b * (4 + 16) + b * s * s * c * 4
+    return bound_ms(n_bytes, b * s * s * (60 + 9 * c))
 
 
 def nms_inputs(b: int, n: int, seed: int):
@@ -1164,7 +1227,7 @@ def print_flash_times(shape: str, times: dict, lib_ms: float, b_ms: float,
 
 
 def make_loops(backend, videos, n_categories: int, n_variants: int,
-               explore_costs):
+               explore_costs, budget_s: float = 2.0):
     from repro_torch.core.omnisense import OmniSenseLoop
     from repro_torch.serving import profiles
     from repro_torch.serving.network import NetworkModel
@@ -1174,7 +1237,7 @@ def make_loops(backend, videos, n_categories: int, n_variants: int,
     lat = OmniSenseLatencyModel(profiles.paper_profile(), NetworkModel())
     loops = []
     for video in videos:
-        loop = OmniSenseLoop(variants, lat, backend, budget_s=2.0,
+        loop = OmniSenseLoop(variants, lat, backend, budget_s=budget_s,
                              n_categories=n_categories,
                              explore_costs=explore_costs)
         # bootstrap the history with frame 0's objects (a full-ERP pass)
@@ -1292,6 +1355,16 @@ def tick_server(loops, backends, **kw):
     return TickServer(loops, backends, **kw)
 
 
+def per_variant_requests(server, n_timelines: int) -> dict:
+    """The requests per variant of the server's timelines from
+    ``n_timelines`` on (a tick's)."""
+    out: dict = {}
+    for tl in server.timelines[n_timelines:]:
+        for ev in tl.events:
+            out[ev.variant] = out.get(ev.variant, 0) + ev.b
+    return out
+
+
 def check_detections(results) -> int:
     import numpy as np
 
@@ -1304,6 +1377,32 @@ def check_detections(results) -> int:
     return n
 
 
+def ladder_params() -> tuple[list, list]:
+    """The five-rung ``PAPER_LADDER`` and its seeded weights on the card."""
+    import torch
+
+    from repro_torch.models import detector as det_mod
+
+    cfgs = list(det_mod.PAPER_LADDER)
+    return cfgs, [det_mod.init_params(torch.Generator().manual_seed(100 + i),
+                                      c, device="cuda")
+                  for i, c in enumerate(cfgs)]
+
+
+def ladder_backend(params):
+    """``TorchDetectorBackend`` over the ladder, as the pod tick serves it
+    (its crop cache and staging of its own)."""
+    from repro_torch.models import detector as det_mod
+    from repro_torch.serving.batching import ShapeBuckets
+    from repro_torch.serving.scheduler import TorchDetectorBackend
+
+    cfgs = list(det_mod.PAPER_LADDER)
+    return TorchDetectorBackend(
+        cfgs, params, conf=0.01, max_det=16,
+        buckets=ShapeBuckets.for_max_batch(
+            MAX_BATCH, tuple(sorted({c.input_size for c in cfgs}))))
+
+
 def run_main_path(profile: bool = False) -> tuple[dict, list]:
     """Phase 5; returns the launches and the ladder's parameters (the
     mixed pod of phase 6 serves the same detectors)."""
@@ -1313,18 +1412,10 @@ def run_main_path(profile: bool = False) -> tuple[dict, list]:
     from repro_torch.core.sphere import sph_nms_batch
     from repro_torch.data.synthetic import make_video, render_erp
     from repro_torch.kernels import _build
-    from repro_torch.models import detector as det_mod
-    from repro_torch.serving.batching import ShapeBuckets
-    from repro_torch.serving.scheduler import TorchDetectorBackend
 
     t0 = time.perf_counter()
-    cfgs = list(det_mod.PAPER_LADDER)
-    params = [det_mod.init_params(torch.Generator().manual_seed(100 + i), c,
-                                  device="cuda") for i, c in enumerate(cfgs)]
-    backend = TorchDetectorBackend(
-        cfgs, params, conf=0.01, max_det=16,
-        buckets=ShapeBuckets.for_max_batch(
-            MAX_BATCH, tuple(sorted({c.input_size for c in cfgs}))))
+    cfgs, params = ladder_params()
+    backend = ladder_backend(params)
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"main path: PAPER_LADDER {[c.input_size for c in cfgs]} px, "
           f"{n_params / 1e6:.1f}M parameters, 80 classes, init "
@@ -1403,10 +1494,7 @@ def run_main_path(profile: bool = False) -> tuple[dict, list]:
         n = check_detections([types.SimpleNamespace(detections=r)
                               for r in results])
         total_dets += n
-        per_variant: dict = {}
-        for tl in server.timelines[n_timelines:]:
-            for ev in tl.events:
-                per_variant[ev.variant] = per_variant.get(ev.variant, 0) + ev.b
+        per_variant = per_variant_requests(server, n_timelines)
         drain, ingest = server.phase["drain"], server.phase["ingest"]
         print(f"tick {f}: requests per variant {per_variant}, detections "
               f"{rec['raw']} -> {[len(r) for r in results]}, wall ms "
@@ -1539,6 +1627,55 @@ def check_action_rungs(act_cfgs, act_params, buckets, frame, regions) -> None:
     plain.release_frames()
 
 
+def action_params(act_cfgs) -> list:
+    """The action rungs' seeded weights on the card."""
+    import torch
+
+    from repro_torch.models import action as act_mod
+
+    return [act_mod.init_params(torch.Generator().manual_seed(200 + i), c,
+                                device="cuda")
+            for i, c in enumerate(act_cfgs)]
+
+
+def mixed_streams(det_params, act_params, seeds, n_frames: int,
+                  act_launches: dict | None = None):
+    """4 mixed streams (``stream_tasks_for("mixed", 4)``) on synthetic
+    1920x3840 video from ``seeds``, built through the task registry
+    (``build_task_streams``) and served by the real backends: the
+    detection streams by one ``TorchDetectorBackend`` on the full
+    ``PAPER_LADDER``, the action streams by one ``TorchActionBackend`` on
+    ``default_action_configs()``; the action path's launches counted apart
+    into ``act_launches``.  Returns (tasks, videos, loops, backends,
+    buckets, detection backend, action backend)."""
+    from repro_torch.data.synthetic import make_video
+    from repro_torch.models import detector as det_mod
+    from repro_torch.serving.scheduler import TorchDetectorBackend
+    from repro_torch.serving.tasks import (TorchActionBackend,
+                                           build_task_streams,
+                                           default_action_configs,
+                                           shape_buckets_for,
+                                           stream_tasks_for)
+
+    tasks = stream_tasks_for("mixed", 4)
+    videos = [make_video(n_frames=n_frames, n_objects=20, seed=s)
+              for s in seeds]
+    _, loops, _, _ = build_task_streams(tasks, videos, [2.0] * len(tasks))
+    buckets = shape_buckets_for(tasks, MAX_BATCH)
+    det = TorchDetectorBackend(list(det_mod.PAPER_LADDER), det_params,
+                               conf=0.01, max_det=16, buckets=buckets)
+    act = TorchActionBackend(default_action_configs(), act_params,
+                             buckets=buckets)
+    if act_launches is not None:
+        count_launches_of(act, "infer_srois_batched", act_launches)
+    backends = [det if t == "detection" else act for t in tasks]
+    # the registry's loops, served by the real backends
+    for loop, backend, video in zip(loops, backends, videos):
+        loop.backend = backend
+        loop.seed_history(video.visible_objects(0))
+    return tasks, videos, loops, backends, buckets, det, act
+
+
 def run_mixed_path(det_params, profile: bool = False) -> dict:
     """The mixed pod: 2 detection streams on the full ``PAPER_LADDER``
     and 2 action streams on the four ``ACTION_LADDER`` rungs, 3 ticks
@@ -1547,38 +1684,17 @@ def run_mixed_path(det_params, profile: bool = False) -> dict:
     import torch
 
     from repro_torch.core.sroi import SRoI
-    from repro_torch.data.synthetic import make_video, render_erp
+    from repro_torch.data.synthetic import render_erp
     from repro_torch.kernels import _build
-    from repro_torch.models import action as act_mod
-    from repro_torch.models import detector as det_mod
-    from repro_torch.serving.scheduler import TorchDetectorBackend
-    from repro_torch.serving.tasks import (TorchActionBackend,
-                                           build_task_streams,
-                                           default_action_configs,
-                                           shape_buckets_for,
-                                           stream_tasks_for,
+    from repro_torch.serving.tasks import (default_action_configs,
                                            task_for_variant)
 
     t0 = time.perf_counter()
-    tasks = stream_tasks_for("mixed", 4)
-    videos = [make_video(n_frames=8, n_objects=20, seed=s)
-              for s in (31, 32, 33, 34)]
-    _, loops, _, _ = build_task_streams(tasks, videos, [2.0] * len(tasks))
-    buckets = shape_buckets_for(tasks, MAX_BATCH)
-    det = TorchDetectorBackend(list(det_mod.PAPER_LADDER), det_params,
-                               conf=0.01, max_det=16, buckets=buckets)
     act_cfgs = default_action_configs()
-    act_params = [act_mod.init_params(torch.Generator().manual_seed(200 + i),
-                                      c, device="cuda")
-                  for i, c in enumerate(act_cfgs)]
-    act = TorchActionBackend(act_cfgs, act_params, buckets=buckets)
+    act_params = action_params(act_cfgs)
     act_launches: dict = {}
-    count_launches_of(act, "infer_srois_batched", act_launches)
-    backends = [det if t == "detection" else act for t in tasks]
-    # the registry's loops, served by the real backends
-    for loop, backend, video in zip(loops, backends, videos):
-        loop.backend = backend
-        loop.seed_history(video.visible_objects(0))
+    tasks, videos, loops, backends, buckets, det, act = mixed_streams(
+        det_params, act_params, (31, 32, 33, 34), 8, act_launches)
     h, w = 1920, 3840
     ticks = {f: [render_erp(v, f, height=h, width=w) for v in videos]
              for f in (1, 2, 3)}
@@ -1613,11 +1729,8 @@ def run_mixed_path(det_params, profile: bool = False) -> dict:
         results = [loop._history[-1] for loop in loops]
         check_detections([types.SimpleNamespace(detections=r)
                           for r in results])
-        per_variant: dict = {}
-        for tl in server.timelines[n_timelines:]:
-            for ev in tl.events:
-                key = f"{task_for_variant(ev.variant)}/{ev.variant}"
-                per_variant[key] = per_variant.get(key, 0) + ev.b
+        per_variant = {f"{task_for_variant(v)}/{v}": n for v, n in
+                       per_variant_requests(server, n_timelines).items()}
         preds = [(d.category, round(d.score, 3)) for s, r in
                  enumerate(results) if tasks[s] != "detection" for d in r]
         n_actions += len(preds)
@@ -1711,9 +1824,75 @@ def run_replay_lane() -> None:
 # --------------------------------------------------------------------------
 
 
+def serve_lm(params, prefill, decode, tokens, n_dec: int, what: str):
+    """A batch of prompts through ``prefill`` and ``n_dec`` greedy
+    ``decode`` steps, timed; the logits must be finite and the cache as
+    long as the prompt and the steps.  Returns (the prefill's logits, the
+    generated tokens (B, n_dec), prefill ms, decode ms a token, the last
+    step's output)."""
+    import torch
+
+    b, s = tokens.shape
+    t = time.perf_counter()
+    out = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    logits = out["logits"].clone()
+    finite = torch.isfinite(logits).all()
+    token, generated = logits.argmax(-1), []
+    t = time.perf_counter()
+    for _ in range(n_dec):
+        generated.append(token)
+        out = decode(params, {"token": token, "cache_k": out["k"],
+                              "cache_v": out["v"], "cache_len": out["length"]})
+        finite &= torch.isfinite(out["logits"]).all()
+        token = out["logits"].argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / max(n_dec, 1)
+    check(bool(finite), f"{what}: non-finite logits")
+    check(int(out["length"]) == s + n_dec, f"{what}: cache length")
+    gen = torch.stack(generated, 1) if generated else tokens[:, :0]
+    return logits, gen, prefill_ms, decode_ms, out
+
+
+def tokens_digest(gen) -> str:
+    import hashlib
+
+    return hashlib.sha256(gen.cpu().numpy().astype("int64").tobytes()
+                          ).hexdigest()[:16]
+
+
+def against_chunked(params, cfg, tokens, logits, max_len: int, what: str,
+                    routes: list | None = None) -> None:
+    """The prefill's ``logits`` against the same step under
+    ``attention_impl="chunked"``, within ``LM_LOGIT_ATOL``.  With the
+    flash run's MoE ``routes`` the chunked run's are compared too: where a
+    token's experts or drops differ the logits are printed, not held."""
+    import dataclasses
+
+    from repro_torch.training.steps import lm_prefill_step
+
+    chunked = dataclasses.replace(cfg, attention_impl="chunked")
+    routes_c: list = []
+    ref = lm_prefill_step(chunked, max_len, routes_c)(
+        params, {"tokens": tokens})["logits"]
+    err = float((logits - ref).abs().max())
+    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    moved = [int(((a.expert_ids != c.expert_ids) | (a.keep != c.keep))
+                 .any(dim=1).sum()) for a, c in zip(routes or [], routes_c)]
+    line = (f"{what} prefill logits against attention_impl=chunked: max|err| "
+            f"{err:.3g}, next-token agreement {agree:.2f}")
+    if any(moved):
+        print(f"{line}; not held to {LM_LOGIT_ATOL}: tokens whose experts or "
+              f"drops differ, by layer: {moved}")
+        return
+    agreed = "; every layer's experts and drops agree" if routes else ""
+    print(f"{line} (tol {LM_LOGIT_ATOL}{agreed})")
+    check(err <= LM_LOGIT_ATOL, f"{what} logits against chunked: {err}")
+
+
 def run_lm_path(profile: bool = False) -> dict:
     import dataclasses
-    import hashlib
 
     import torch
 
@@ -1749,39 +1928,22 @@ def run_lm_path(profile: bool = False) -> dict:
     torch.cuda.synchronize()
 
     _build.reset_launch_counts()
-    t = time.perf_counter()
-    out = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    logits = out["logits"].clone()
-    finite = torch.isfinite(logits).all()
-    token = logits.argmax(-1)
-    generated = []
-    t = time.perf_counter()
-    for _ in range(n_dec):
-        generated.append(token)
-        out = decode(params, {"token": token, "cache_k": out["k"],
-                              "cache_v": out["v"], "cache_len": out["length"]})
-        finite &= torch.isfinite(out["logits"]).all()
-        token = out["logits"].argmax(-1)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t) * 1e3 / n_dec
-    check(int(out["length"]) == s + n_dec, "decode: cache length")
+    logits, gen, prefill_ms, decode_ms, out = serve_lm(
+        params, prefill, decode, tokens, n_dec, "the LM path")
     t = time.perf_counter()
     long_out = lm_prefill_step(cfg, s_long)(params, {"tokens": long_tokens})
     torch.cuda.synchronize()
     long_ms = (time.perf_counter() - t) * 1e3
-    finite &= torch.isfinite(long_out["logits"]).all()
     launches = _build.launch_counts()
-    check(bool(finite), "the LM path gave non-finite logits")
-    digest = hashlib.sha256(torch.stack(generated, 1).cpu().numpy()
-                            .astype("int64").tobytes()).hexdigest()[:16]
+    check(bool(torch.isfinite(long_out["logits"]).all()),
+          "the LM path's long prefill gave non-finite logits")
+    digest = tokens_digest(gen)
     print(f"LM prefill B={b} S={s}: {prefill_ms:.1f} ms for the step, "
           f"prefill ms per request {prefill_ms / b:.1f}")
     print(f"LM decode B={b}, {n_dec} greedy steps after the {s}-token "
           f"prompt: decode ms per token {decode_ms:.2f}")
     print(f"LM generated tokens (B={b} x {n_dec}) sha256 {digest}; first "
-          f"row {torch.stack(generated, 1)[0, :8].tolist()}")
+          f"row {gen[0, :8].tolist()}")
     print(f"LM prefill B=1 S={s_long} (prefill_32k's length; its batch of "
           f"32 cut to 1 for the smoke's time): prefill ms per request "
           f"{long_ms:.1f}")
@@ -1798,14 +1960,8 @@ def run_lm_path(profile: bool = False) -> dict:
     # comparisons, after the counts are read: the same step under the
     # chunked plain version, and layer 0's attention at 32k
     chunked = dataclasses.replace(cfg, attention_impl="chunked")
-    ref = lm_prefill_step(chunked, s + n_dec)(params, {"tokens": tokens})
-    err = float((logits - ref["logits"]).abs().max())
-    agree = float((logits.argmax(-1) == ref["logits"].argmax(-1)).float()
-                  .mean())
-    print(f"LM prefill B={b} S={s} logits against attention_impl=chunked: "
-          f"max|err| {err:.3g} (tol {LM_LOGIT_ATOL}), next-token agreement "
-          f"{agree:.2f}")
-    check(err <= LM_LOGIT_ATOL, f"LM logits against chunked: {err}")
+    against_chunked(params, cfg, tokens, logits, s + n_dec,
+                    f"LM B={b} S={s}")
     check_each_layer(params, cfg, tokens, "LM")
     with torch.no_grad():
         lp = T._layer_params(params, 0)
@@ -1821,7 +1977,7 @@ def run_lm_path(profile: bool = False) -> dict:
           f"plain version: max|err| {err0:.3g}, {readings}")
     if profile:
         profile_lm(prefill, decode, params, tokens)
-    del params, long_out, out, ref
+    del params, long_out, out
     launches.update(run_lm_float32(cfg, tokens[:1]))
     return {k: launches.get(k, 0) for k in LM_KERNELS}
 
@@ -1922,9 +2078,10 @@ def run_lm_float32(cfg, tokens) -> dict:
 # --------------------------------------------------------------------------
 
 # phase 8's runs: (config module, layers kept of the published depth,
-# batch, prompt tokens, greedy decode steps)
-MOE_RUNS = (("mixtral_8x22b", 8, 2, 8192, 32),
-            ("qwen3_moe_235b_a22b", 2, 1, 4096, 0))
+# batch, prompt tokens, greedy decode steps, and the prompt tokens of the
+# decode-against-prefill check, 0 for none)
+MOE_RUNS = (("mixtral_8x22b", 8, 2, 8192, 32, 0),
+            ("qwen3_moe_235b_a22b", 2, 1, 4096, 16, 1024))
 # layer 0's MoE block against the per-token float32 formulation over the
 # prompt's first MOE_CHECK_TOKENS tokens.  The formulation rounds the
 # SwiGLU's hidden to bf16 where the reference's function does
@@ -2008,13 +2165,10 @@ def routes_by_layer(routes: list, n_layers: int) -> list[list]:
 
 
 def serve_moe(cfg, b: int, s: int, n_dec: int, full_layers: int,
-              profile: bool) -> dict:
+              profile: bool, check_prompt: int = 0) -> dict:
     """One MoE model through ``lm_prefill_step`` (and ``n_dec`` greedy
     ``lm_decode_step``s), launches counted from 0 before and read after;
     then the comparisons; returns the launches."""
-    import dataclasses
-    import hashlib
-
     import torch
 
     from repro_torch.kernels import _build
@@ -2047,27 +2201,10 @@ def serve_moe(cfg, b: int, s: int, n_dec: int, full_layers: int,
     torch.cuda.reset_peak_memory_stats()
 
     _build.reset_launch_counts()
-    t = time.perf_counter()
-    out = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    logits = out["logits"].clone()
-    finite = torch.isfinite(logits).all()
-    token = logits.argmax(-1)
-    generated = []
-    t = time.perf_counter()
-    for _ in range(n_dec):
-        generated.append(token)
-        out = decode(params, {"token": token, "cache_k": out["k"],
-                              "cache_v": out["v"], "cache_len": out["length"]})
-        finite &= torch.isfinite(out["logits"]).all()
-        token = out["logits"].argmax(-1)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t) * 1e3 / max(n_dec, 1)
+    logits, gen, prefill_ms, decode_ms, out = serve_lm(
+        params, prefill, decode, tokens, n_dec, f"the {cfg.name} MoE path")
     launches = _build.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(bool(finite), f"the {cfg.name} MoE path gave non-finite logits")
-    check(int(out["length"]) == s + n_dec, f"{cfg.name}: cache length")
     print(f"MoE {cfg.name} prefill B={b} S={s}: {prefill_ms:.1f} ms for the "
           f"step, prefill ms per request {prefill_ms / b:.1f}; peak device "
           f"memory {peak_gb:.1f} GB")
@@ -2077,15 +2214,13 @@ def serve_moe(cfg, b: int, s: int, n_dec: int, full_layers: int,
           f"{cfg.moe_top_k} picks, capacity {T.moe_capacity(cfg, b * s)} an "
           f"expert): {drops}")
     if n_dec:
-        gen = torch.stack(generated, 1)
-        digest = hashlib.sha256(gen.cpu().numpy().astype("int64").tobytes()
-                                ).hexdigest()[:16]
+        digest = tokens_digest(gen)
         drops = [int(sum((~r.keep).sum() for r in rs))
                  for rs in routes_by_layer(routes_d, cfg.n_layers)]
         print(f"MoE {cfg.name} decode B={b}, {n_dec} greedy steps after the "
               f"{s}-token prompt (positions {s}..{s + n_dec - 1}, ring slots "
               f"pos % {out['k'].shape[2]}): decode ms per token "
-              f"{decode_ms:.2f}")
+              f"{decode_ms:.2f}; {card_line()}")
         print(f"MoE {cfg.name} generated tokens (B={b} x {n_dec}) sha256 "
               f"{digest}; first row {gen[0, :8].tolist()}")
         print(f"MoE {cfg.name} decode tokens dropped per layer over {n_dec} "
@@ -2096,30 +2231,14 @@ def serve_moe(cfg, b: int, s: int, n_dec: int, full_layers: int,
 
     # comparisons, after the counts are read: the same step under the
     # chunked plain version, with its routing
-    chunked = dataclasses.replace(cfg, attention_impl="chunked")
-    routes_c = []
-    ref = lm_prefill_step(chunked, s + n_dec, routes_c)(params,
-                                                        {"tokens": tokens})
-    err = float((logits - ref["logits"]).abs().max())
-    agree = float((logits.argmax(-1) == ref["logits"].argmax(-1)).float()
-                  .mean())
-    moved = [int(((a.expert_ids != c.expert_ids) | (a.keep != c.keep))
-                 .any(dim=1).sum()) for a, c in zip(routes_p, routes_c)]
-    line = (f"MoE {cfg.name} prefill logits against attention_impl=chunked: "
-            f"max|err| {err:.3g}, next-token agreement {agree:.2f}")
-    if any(moved):
-        print(f"{line}; not held to {LM_LOGIT_ATOL}: tokens whose experts or "
-              f"drops differ, by layer: {moved}")
-    else:
-        print(f"{line} (tol {LM_LOGIT_ATOL}; every layer's experts and drops "
-              f"agree)")
-        check(err <= LM_LOGIT_ATOL, f"{cfg.name} logits against chunked: "
-              f"{err}")
-    del ref, routes_c
+    against_chunked(params, cfg, tokens, logits, s + n_dec,
+                    f"MoE {cfg.name}", routes=routes_p)
     moe_readings = check_each_layer(params, cfg, tokens, f"MoE {cfg.name}",
                                     rows=512, at_layer0=check_moe_block)
     print(f"MoE {cfg.name} layer-0 MoE block against the per-token float32 "
           f"formulation: {moe_readings}")
+    if check_prompt:
+        check_moe_decode(params, cfg, tokens, check_prompt)
     if profile and n_dec:
         profile_lm(prefill, decode, params, tokens)
     return launches
@@ -2138,7 +2257,8 @@ def run_moe_path(profile: bool = False) -> dict:
     kernel's skip of the tiles behind it both act), then 32 greedy decode
     steps at B=2; qwen3-moe-235b-a22b 94 -> 2 layers (12.4 GB with the
     embeddings), one 1 x 4096 prefill (capacity 320, 40960 grouped
-    rows).  Launch counts are set to 0 before each model's path and read
+    rows), then 16 greedy decode steps at B=1 (capacity 1 an expert: the
+    top-8 picks of one token are distinct experts, so none drops).  Launch counts are set to 0 before each model's path and read
     after it: the tensor-core kernel once a layer of each prefill, the
     SIMT kernel never."""
     import dataclasses
@@ -2148,12 +2268,13 @@ def run_moe_path(profile: bool = False) -> dict:
 
     torch.cuda.empty_cache()  # phase 7's parameters are freed
     launches: dict = {}
-    for module, n_layers, b, s, n_dec in MOE_RUNS:
+    for module, n_layers, b, s, n_dec, check_prompt in MOE_RUNS:
         full = importlib.import_module(f"repro_torch.configs.{module}"
                                        ).full_config()
         cfg = dataclasses.replace(full, n_layers=n_layers,
                                   attention_impl="flash")
-        got = serve_moe(cfg, b, s, n_dec, full.n_layers, profile)
+        got = serve_moe(cfg, b, s, n_dec, full.n_layers, profile,
+                        check_prompt)
         torch.cuda.empty_cache()  # its parameters are freed
         check(got.get("flash_attention_wgmma", 0) == n_layers,
               f"flash_attention_wgmma launched "
@@ -3633,6 +3754,726 @@ def md_replica_forward(card: str) -> None:
     check(bad == 0, "the replica forward differs from the unsplit one")
 
 
+# --------------------------------------------------------------------------
+# phase 14: the OmniSense server under its policies, the 1280 rung batched,
+# the open-loop fleet
+# --------------------------------------------------------------------------
+
+# deadline vs sync (ticks), async (ticks before the flush), the 1280 pod
+POLICY_TICKS, ASYNC_TICKS, RUNG_TICKS = 3, 4, 2
+# the loops' budgets tried, in order, until the allocator puts at least
+# two of tick 1's SRoIs on yolo-p6-1280 (at 2.0 s it puts none there)
+RUNG_BUDGETS = (2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0)
+RUNG_SIZE = 1280
+# DeadlineOrderPolicy drains every queue fully and only orders the
+# chunks, so its detections are sync's: the same chunks through the same
+# kernels, held to the pod-tick parity tests' 1e-4
+POLICY_ATOL = 1e-4
+# a request's batched detections against ``infer_sroi`` on its own frame
+# at the geometry it was served at: the two projections (the batched one
+# and the per-request sampling kernel) differ by float32 roundings (a few
+# 1e-6), which the detector's float32 layers carry to its scores and boxes
+PER_REQUEST_ATOL = 1e-3
+# the fleet: the serve launcher's open-loop defaults (launch/serve.py)
+FLEET_PODS, FLEET_FPS, FLEET_JITTER, FLEET_FRAMES = 2, 0.5, 0.2, 8
+FLEET_SLO_S = 2.0
+
+
+def lazy_frames(videos):
+    """A frame source that renders each (stream, frame) when first asked
+    for it and keeps it (the pods' few frames; the fleet renders its own
+    without keeping them)."""
+    from repro_torch.data.synthetic import render_erp
+
+    frames: dict = {}
+
+    def source(s: int, f: int):
+        if (s, f) not in frames:
+            frames[(s, f)] = render_erp(videos[s], f, height=1920,
+                                        width=3840)
+        return frames[(s, f)]
+
+    source.frames = frames
+    return source
+
+
+def compare_dets(got, want, atol: float) -> tuple[bool, bool, float]:
+    """(within ``atol``, bit-equal, max |err|) of two detection lists:
+    equal counts and categories, boxes and scores within ``atol``."""
+    import numpy as np
+
+    if len(got) != len(want) or [d.category for d in got] != \
+            [d.category for d in want]:
+        return False, False, math.inf
+    err = max((max(float(np.abs(np.asarray(a.box) - np.asarray(b.box)).max()),
+                   abs(a.score - b.score)) for a, b in zip(got, want)),
+              default=0.0)
+    exact = all(np.array_equal(a.box, b.box) and a.score == b.score
+                for a, b in zip(got, want))
+    return err <= atol, exact, err
+
+
+def record_chunks(backend, keep_pis=None) -> list:
+    """Wrap ``backend``'s chunk projection and batched launch so that
+    every served request is recorded: its variant, frame, region, the
+    geometry its crop was projected at (the anchor's for a crop-cache
+    hit), its batched detections, the launch it was part of and, where
+    ``keep_pis(size)`` is true, its crop."""
+    project, launch = backend._project_chunk, backend.launch_srois_batched
+    seen: list = []
+    crops: dict = {}
+    n_launches = itertools.count(1)
+
+    def projecting(chunk, size):
+        pis, geoms = project(chunk, size)
+        for (_, region), geom, pi in zip(chunk, geoms, pis):
+            crops[id(region)] = (geom, size, pi if keep_pis and keep_pis(size)
+                                 else None)
+        return pis, geoms
+
+    def launching(items, variant, group=None):
+        resolve = launch(items, variant, group)
+        n_launch = next(n_launches)
+
+        def resolved():
+            out = resolve()
+            for (frame, region), dets in zip(items, out):
+                geom, size, pi = crops.pop(id(region))
+                seen.append(dict(variant=variant, frame=frame, region=region,
+                                 geom=geom, size=size, pi=pi, dets=dets,
+                                 launch=(n_launch, variant.name)))
+            return out
+
+        return resolved
+
+    backend._project_chunk = projecting
+    backend.launch_srois_batched = launching
+    return seen
+
+
+def served_at(rec):
+    """The SRoI a recorded request's crop was projected at."""
+    from repro_torch.core.sroi import SRoI
+
+    ct, cp, fov = rec["geom"]
+    return SRoI(center=(float(ct), float(cp)), fov=tuple(fov))
+
+
+def frame_digests(sink) -> list:
+    return [(e["stream"], e["frame_idx"], e["det_digest"])
+            for e in sink.events if e["event"] == "frame_finish"]
+
+
+def run_serving_policies() -> tuple[dict, list]:
+    """Phase 14 (a)-(c): the pod's deadline and async policies and the
+    1280 rung batched, on the full ``PAPER_LADDER`` at 1920x3840.  Returns
+    the launches (counted from 0 before and read after) and the ladder's
+    parameters, which the fleet serves."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    cfgs, params = ladder_params()
+    torch.cuda.synchronize()
+    print(f"serving policies: PAPER_LADDER {[c.input_size for c in cfgs]} "
+          f"px at 1920x3840, MAX_BATCH {MAX_BATCH}, init "
+          f"{time.perf_counter() - t0:.1f}s")
+    _build.reset_launch_counts()
+    run_deadline_against_sync(params)
+    run_async_pod(params)
+    run_rung_1280(params, cfgs)
+    launches = _build.launch_counts()
+    print(f"serving policies launches: {launches}; "
+          f"{time.perf_counter() - t0:.1f}s; {card_line()}")
+    for k in KERNELS:
+        if k not in LM_KERNELS and k != "sphiou_matrix_batch_bf16":
+            check(launches.get(k, 0) > 0,
+                  f"kernel {k} was not launched on the serving policies' path")
+    return launches, params
+
+
+def run_deadline_against_sync(params) -> None:
+    """4 streams, ``POLICY_TICKS`` ticks under ``deadline`` and, beside it,
+    under ``sync`` (each pod its own backend, the same frames): each
+    frame's detections equal within ``POLICY_ATOL``."""
+    import torch
+
+    from repro_torch.data.synthetic import make_video
+
+    videos = [make_video(n_frames=8, n_objects=20, seed=s)
+              for s in (41, 42, 43, 44)]
+    source = lazy_frames(videos)
+    pods = {}
+    for policy in ("sync", "deadline"):
+        backend = ladder_backend(params)
+        _, loops = make_loops(backend, videos, 80, 5, None)
+        pods[policy] = tick_server(loops, [backend] * len(loops),
+                                   max_batch=MAX_BATCH,
+                                   buckets=backend.buckets,
+                                   frame_source=source, policy=policy)
+    worst, exact, n = 0.0, True, 0
+    for f in range(1, POLICY_TICKS + 1):
+        walls = {}
+        for policy, server in pods.items():
+            server.phase = dict(drain=0.0, ingest=0.0)
+            n_tl = len(server.timelines)
+            t = time.perf_counter()
+            server.step(f)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            walls[policy] = (wall, server.phase["drain"],
+                             server.phase["ingest"],
+                             per_variant_requests(server, n_tl))
+        for a, b in zip(pods["deadline"].loops, pods["sync"].loops):
+            ok, same, err = compare_dets(a._history[-1], b._history[-1],
+                                         POLICY_ATOL)
+            check(ok, f"deadline tick {f}: a frame's detections differ from "
+                  f"sync's ({len(a._history[-1])} vs {len(b._history[-1])}, "
+                  f"max|err| {err})")
+            worst, exact = max(worst, err), exact and same
+            n += len(a._history[-1])
+        wall, drain, ingest, per_variant = walls["deadline"]
+        order = [ev.variant for ev in pods["deadline"].timelines[-1].events]
+        print(f"deadline tick {f}: wall ms {wall:.1f} (emission "
+              f"{wall - drain - ingest:.1f}, drain {drain:.1f}, ingest "
+              f"{ingest:.1f}); sync's {walls['sync'][0]:.1f}; requests per "
+              f"variant {per_variant}; chunk order {order}; {card_line()}")
+    check(n > 0, "the deadline pod produced no detections")
+    d, s_ = pods["deadline"].stats, pods["sync"].stats
+    # the same chunks, launched in another order
+    check((d.frames, d.dispatches, sorted(d.batch_sizes)) ==
+          (s_.frames, s_.dispatches, sorted(s_.batch_sizes)),
+          "deadline and sync dispatched different chunks")
+    print(f"deadline against sync: {d.frames} frames, {n} detections, "
+          f"{d.dispatches} dispatches each; max|err| {worst:.3g} (tol "
+          f"{POLICY_ATOL}); bit-equal {exact}")
+
+
+def serve_async(params, videos, checks: bool):
+    """One async pod: ``ASYNC_TICKS`` ticks, then ``flush``.  With
+    ``checks`` each tick prints its line and every carried request is
+    recorded.  Returns (server, backend, sink, frame source, carried
+    request records)."""
+    import torch
+
+    from repro_torch.serving.telemetry import MemorySink
+
+    backend = ladder_backend(params)
+    _, loops = make_loops(backend, videos, 80, 5, None)
+    source = lazy_frames(videos)
+    sink = MemorySink()
+    server = tick_server(loops, [backend] * len(loops), max_batch=MAX_BATCH,
+                         buckets=backend.buckets, frame_source=source,
+                         policy="async", telemetry=sink)
+    seen = record_chunks(backend) if checks else []
+    carried: list = []
+    execute = server._execute
+
+    def watching(ops, timeline, close):
+        aged = {id(it.request.region) for name in server.queues.counts()
+                for it in server.queues.peek(name) if it.age > 0}
+        n = len(seen)
+        execute(ops, timeline, close)
+        carried.extend(r for r in seen[n:] if id(r["region"]) in aged)
+
+    server._execute = watching
+    for f in range(1, ASYNC_TICKS + 2):  # the last round is the flush
+        uploads, hits = backend.frame_uploads, backend.crop_cache_hits
+        n_carried, n_frames = server.stats.carried_requests, server.stats.frames
+        n_tl, n_rec = len(server.timelines), len(carried)
+        server.phase = dict(drain=0.0, ingest=0.0)
+        t = time.perf_counter()
+        if f <= ASYNC_TICKS:
+            server.step(f)
+        else:
+            server.flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        if not checks:
+            continue
+        up = backend.frame_uploads - uploads
+        staged = len(videos) if f <= ASYNC_TICKS else 0
+        drain, ingest = server.phase["drain"], server.phase["ingest"]
+        what = f"async tick {f}" if f <= ASYNC_TICKS else "async flush"
+        print(f"{what}: wall ms {wall:.1f} (emission "
+              f"{wall - drain - ingest:.1f}, drain {drain:.1f}, ingest "
+              f"{ingest:.1f}); requests per variant "
+              f"{per_variant_requests(server, n_tl)}; carried requests "
+              f"{server.stats.carried_requests - n_carried} (left queued "
+              f"{len(server.queues)}), served a tick late "
+              f"{len(carried) - n_rec}; frame uploads {up} ({staged} staged, "
+              f"{up - staged} by chunks holding carried requests, which "
+              f"upload each of their frames again); "
+              f"crop-cache hits {backend.crop_cache_hits - hits}; frames "
+              f"finished {server.stats.frames - n_frames}; {card_line()}")
+    return server, backend, sink, source, carried
+
+
+def run_async_pod(params) -> None:
+    """4 streams, ``ASYNC_TICKS`` async ticks and the flush: carried
+    requests, each held to ``infer_sroi`` on its own frame (and a control
+    on its stream's next frame, which must fail), nothing left after the
+    flush, and a second run from the same seeds bit-equal."""
+    from repro_torch.data.synthetic import make_video
+    from repro_torch.serving.replay import stats_fingerprint
+
+    def videos():
+        return [make_video(n_frames=8, n_objects=20, seed=s)
+                for s in (45, 46, 47, 48)]
+
+    server, backend, sink, source, carried = serve_async(params, videos(),
+                                                         checks=True)
+    n_streams = len(server.loops)
+    check(server.stats.carried_requests > 0, "the async pod carried nothing")
+    check(bool(carried), "no carried request was served")
+    check(not len(server.queues) and not server._inflight
+          and not backend._staged,
+          f"after flush: {len(server.queues)} queued, "
+          f"{len(server._inflight)} in flight, {len(backend._staged)} staged")
+    check(server.stats.frames == n_streams * ASYNC_TICKS,
+          f"async: {server.stats.frames} frames finished, not "
+          f"{n_streams * ASYNC_TICKS}")
+    where = {id(img): key for key, img in source.frames.items()}
+    worst, worst_ctl, n_ctl = 0.0, math.inf, 0
+    for rec in carried:
+        s, f = where[id(rec["frame"])]
+        region = served_at(rec)
+        own = backend.infer_sroi(rec["frame"], region, rec["variant"])
+        ok, _, err = compare_dets(rec["dets"], own, PER_REQUEST_ATOL)
+        check(ok, f"a carried request of stream {s} frame {f} differs from "
+                  f"infer_sroi on its own frame (max|err| {err})")
+        worst = max(worst, err)
+        if rec["dets"] or own:
+            nxt = backend.infer_sroi(source(s, f + 1), region, rec["variant"])
+            ok_c, _, err_c = compare_dets(rec["dets"], nxt, PER_REQUEST_ATOL)
+            check(not ok_c, f"the control (stream {s} frame {f + 1}) passes "
+                  f"for a carried request of frame {f}")
+            worst_ctl, n_ctl = min(worst_ctl, err_c), n_ctl + 1
+    check(n_ctl > 0, "no carried request had a detection to control")
+    print(f"async: {server.stats.carried_requests} carried requests, "
+          f"{len(carried)} served a tick after emission (their frames no "
+          f"longer staged); each against infer_sroi on its own frame at its "
+          f"served geometry: max|err| {worst:.3g} (tol {PER_REQUEST_ATOL}); "
+          f"the control on the stream's next frame fails for all {n_ctl} "
+          f"with detections (least max|err| {worst_ctl:.3g}, counts or "
+          f"categories differing read inf); after flush 0 queued, 0 in "
+          f"flight, 0 staged, {server.stats.frames} frames finished")
+    fp, digests = stats_fingerprint(server.stats), frame_digests(sink)
+    again, _, sink2, _, _ = serve_async(params, videos(), checks=False)
+    same_fp = stats_fingerprint(again.stats) == fp
+    same_dig = frame_digests(sink2) == digests
+    print(f"async run twice from the same seeds: ServeStats fingerprint "
+          f"equal {same_fp}; {len(digests)} per-frame detection digests "
+          f"equal {same_dig}")
+    check(same_fp and same_dig, "the async pod is not deterministic")
+
+
+def run_rung_1280(params, cfgs) -> None:
+    """4 streams, ``RUNG_TICKS`` sync ticks with the loops' budget raised
+    until the allocator puts at least two of tick 1's SRoIs on the 1280
+    rung: its chunk through ``project_srois_batched`` at S=1280, the crops
+    held to the float64 map, the detections to ``infer_sroi``, the
+    kernel's time beside its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import make_video
+    from repro_torch.kernels.gnomonic import ops
+    from repro_torch.kernels.gnomonic.ref import (project_sroi_f64,
+                                                  project_srois_ref)
+
+    rung = next(i for i, c in enumerate(cfgs) if c.input_size == RUNG_SIZE)
+    videos = [make_video(n_frames=8, n_objects=20, seed=s)
+              for s in (49, 50, 51, 52)]
+    source = lazy_frames(videos)
+    probe = ladder_backend(params)
+    on_rung = {}
+    for budget in RUNG_BUDGETS:
+        _, loops = make_loops(probe, videos, 80, 5, None, budget_s=budget)
+        on_rung[budget] = sum(r.variant.index - 1 == rung for s, loop in
+                              enumerate(loops) for r in
+                              loop.begin_frame(source(s, 1)).requests)
+        if on_rung[budget] >= 2:
+            break
+    check(on_rung[budget] >= 2, f"no budget in {RUNG_BUDGETS} puts two SRoIs "
+          f"on the {RUNG_SIZE} rung: {on_rung}")
+    backend = ladder_backend(params)
+    _, loops = make_loops(backend, videos, 80, 5, None, budget_s=budget)
+    server = tick_server(loops, [backend] * len(loops), max_batch=MAX_BATCH,
+                         buckets=backend.buckets, frame_source=source)
+    seen = record_chunks(backend, keep_pis=lambda size: size == RUNG_SIZE)
+    name = loops[0].variants[rung].name
+    chunks = []
+    for f in range(1, RUNG_TICKS + 1):
+        n_tl = len(server.timelines)
+        server.phase = dict(drain=0.0, ingest=0.0)
+        t = time.perf_counter()
+        server.step(f)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        sizes = [ev.b for tl in server.timelines[n_tl:] for ev in tl.events
+                 if ev.variant == name]
+        chunks += sizes
+        print(f"rung tick {f}: budget_s {budget} (tried {on_rung}); requests "
+              f"per variant {per_variant_requests(server, n_tl)}; {name} "
+              f"chunks {sizes}; wall ms {wall:.1f} (drain "
+              f"{server.phase['drain']:.1f}); {card_line()}")
+    check(max(chunks, default=0) >= 2,
+          f"no {name} chunk of batch >= 2: {chunks}")
+    recs = [r for r in seen if r["size"] == RUNG_SIZE]
+    dev_frames: dict = {}
+    err_k = err_p = worst = 0.0
+    for rec in recs:
+        fid = id(rec["frame"])
+        if fid not in dev_frames:
+            dev_frames[fid] = torch.from_numpy(rec["frame"]).cuda()
+        frame = dev_frames[fid]
+        ct, cp, fov = rec["geom"]
+        exact = project_sroi_f64(frame, float(ct), float(cp), list(fov),
+                                 RUNG_SIZE)
+        plain = project_srois_ref(
+            frame[None], torch.tensor([0]), torch.tensor([[ct, cp]]),
+            torch.tensor([list(fov)]), (RUNG_SIZE, RUNG_SIZE))[0]
+        err_k = max(err_k, float((rec["pi"].double() - exact).abs().max()))
+        err_p = max(err_p, float((plain.double() - exact).abs().max()))
+        ok, _, err = compare_dets(rec["dets"], backend.infer_sroi(
+            rec["frame"], served_at(rec), rec["variant"]), PER_REQUEST_ATOL)
+        check(ok, f"a {name} request differs from infer_sroi (max|err| {err})")
+        worst = max(worst, err)
+    check(err_k <= 2 * err_p + 5e-5,
+          f"{name} crops {err_k} from the float64 map, the plain version "
+          f"{err_p}")
+    # the kernel alone on the largest launch's crops (at most MAX_BATCH)
+    launches: dict = {}
+    for rec in recs:
+        launches.setdefault(rec["launch"], []).append(rec)
+    batch = max(launches.values(), key=len)[:MAX_BATCH]
+    order = list(dict.fromkeys(id(r["frame"]) for r in batch))
+    stack = torch.stack([dev_frames[i] for i in order])
+    idx = [order.index(id(r["frame"])) for r in batch]
+    centers = np.array([r["geom"][:2] for r in batch], np.float32)
+    fovs = np.array([r["geom"][2] for r in batch], np.float32)
+    ms = time_ms(lambda: ops.project_srois_batched(
+        stack, idx, centers, fovs, (RUNG_SIZE, RUNG_SIZE)), reps=20)
+    b_ms, b_by = project_bound(stack, idx, centers, fovs, RUNG_SIZE)
+    print(f"rung {name}: {len(recs)} requests in chunks {chunks}; crops "
+          f"against the float64 map: kernel {err_k:.3g}, plain {err_p:.3g} "
+          f"(tol 2 x plain + 5e-5); detections against infer_sroi max|err| "
+          f"{worst:.3g} (tol {PER_REQUEST_ATOL})")
+    print(f"kernel project_srois_batched B={len(batch)} S={RUNG_SIZE} (the "
+          f"tick's {name} chunk, {len(order)} distinct 1920x3840x3 frames): "
+          f"ms {ms:.4f}, bound_ms {b_ms:.5f} ({b_by}); {card_line()}")
+
+
+def fleet_run(det_params, act_params, sink, act_launches=None):
+    """One open-loop run of a ``FLEET_PODS``-pod fleet over 4 mixed
+    streams (phase 6's construction), affinity routing, SLO admission,
+    no placement; frames rendered when an arrival asks for them and
+    dropped once served.  Returns (stats, detection backend, action
+    backend, frames rendered)."""
+    from repro_torch.data.synthetic import render_erp
+    from repro_torch.serving.fleet import FleetServer
+    from repro_torch.serving.runtime import make_policy
+    from repro_torch.serving.server import PodServer
+    from repro_torch.serving.traffic import ArrivalProcess
+
+    tasks, videos, loops, backends, buckets, det, act = mixed_streams(
+        det_params, act_params, (53, 54, 55, 56), 16, act_launches)
+    rendered = [0]
+
+    def source(s, f):
+        rendered[0] += 1
+        return render_erp(videos[s], f, height=1920, width=3840)
+
+    def make_pod(pod_id):
+        return PodServer(loops, backends, max_batch=MAX_BATCH,
+                         buckets=buckets, frame_source=source,
+                         policy=make_policy("sync", admission="slo"))
+
+    fleet = FleetServer(make_pod, FLEET_PODS, routing="affinity",
+                        telemetry=sink)
+    traffic = ArrivalProcess(len(tasks), fps=FLEET_FPS, jitter=FLEET_JITTER,
+                             seed=0, horizon_s=FLEET_FRAMES / FLEET_FPS)
+    return fleet.run_open_loop(traffic, slo_s=FLEET_SLO_S), det, act, \
+        rendered[0]
+
+
+@contextlib.contextmanager
+def nms_rule_rounds(into: dict):
+    """Count, into ``into``, every round of ``sph_nms_batch(backend=
+    "auto")`` by the backend its rule picks and the shape it is given:
+    {(backend, rows, padded length): rounds}."""
+    from repro_torch.core import sphere
+
+    rule = sphere.nms_auto_backend
+
+    def counted(b, n):
+        got = rule(b, n)
+        into[(got, b, n)] = into.get((got, b, n), 0) + 1
+        return got
+
+    sphere.nms_auto_backend = counted
+    try:
+        yield into
+    finally:
+        sphere.nms_auto_backend = rule
+
+
+# the shapes at which the NMS crossover is timed: every (rows, padded
+# length) of the NMS ladder from 8 to 256 boxes with at most the 512
+# boxes from which ``auto`` has always taken the card
+NMS_CROSSOVER = tuple((b, n) for b in (1, 2, 4, 8)
+                      for n in (8, 16, 32, 64, 128, 256) if b * n <= 512)
+
+
+def check_nms_rounds(rounds: dict) -> None:
+    """The batched NMS at every shape the ``auto`` rule sent to the card
+    on the serving paths (``rounds``, from :func:`nms_rule_rounds`) and at
+    every ``NMS_CROSSOVER`` shape: the kernels' keep mask (``backend=
+    "cuda"``) against the plain version's on the card (``"torch"``), bit
+    for bit, on detection-like rows; at the crossover shapes also each
+    backend's wall ms a call (the card's with its copies and
+    synchronisation), host and card: what the rule weighs."""
+    import torch
+
+    from repro_torch.core.sphere import nms_auto_backend, sph_nms_batch
+
+    on_card = {(b, n): k for (got, b, n), k in rounds.items()
+               if got == "cuda"}
+    by_rows: dict = {}
+    for b, n in sorted(set(NMS_CROSSOVER) | set(on_card)):
+        boxes, scores, mask = nms_inputs(b, n, 1000 * b + n)
+        keep = sph_nms_batch(boxes, scores, mask, backend="cuda")
+        plain = sph_nms_batch(boxes, scores, mask, backend="torch",
+                              device="cuda")
+        check(bool((keep == plain).all()), f"NMS {b}x{n}: the kernels' keep "
+              f"mask differs from the plain version's on the card")
+        if (b, n) not in NMS_CROSSOVER:
+            continue
+        ms = {}
+        for backend in ("host", "cuda"):
+            sph_nms_batch(boxes, scores, mask, backend=backend)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                sph_nms_batch(boxes, scores, mask, backend=backend)
+            ms[backend] = (time.perf_counter() - t) * 1e3 / 20
+        by_rows.setdefault(b, []).append(
+            f"N={n} host {ms['host']:.3f} card {ms['cuda']:.3f} (rule: "
+            f"{nms_auto_backend(b, n)})")
+    for b, line in by_rows.items():
+        print(f"NMS crossover B={b}, wall ms a call: {'; '.join(line)}; "
+              f"{card_line()}")
+    print(f"NMS keep masks, kernels against the plain version on the card, "
+          f"bit-equal at the {len(NMS_CROSSOVER)} crossover shapes and at "
+          f"every shape the auto rule sent to the card on the serving paths "
+          f"(phases 5, 6 and 14), by (rows, padded length): rounds "
+          f"{dict(sorted(on_card.items()))}")
+
+
+def run_fleet_path(det_params) -> dict:
+    """Phase 14 (d): the open-loop fleet with the real backends, run
+    twice (bit-equal); returns the first run's launches."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.serving.fleet import format_fleet_report
+    from repro_torch.serving.replay import stats_fingerprint
+    from repro_torch.serving.tasks import default_action_configs
+    from repro_torch.serving.telemetry import MemorySink
+
+    act_params = action_params(default_action_configs())
+    act_launches: dict = {}
+    nms_rounds: dict = {}
+    sink = MemorySink()
+    torch.cuda.synchronize()
+    with nms_rule_rounds(nms_rounds):
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        fstats, det, act, rendered = fleet_run(det_params, act_params,
+                                               sink, act_launches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = _build.launch_counts()
+    horizon_s = FLEET_FRAMES / FLEET_FPS
+    for line in format_fleet_report(fstats, horizon_s):
+        print(f"fleet: {line}")
+    by_task: dict = {}
+    for st in fstats.pod_stats:
+        for task, n in st.frames_by_task.items():
+            by_task[task] = by_task.get(task, 0) + n
+    print(f"fleet: {FLEET_PODS} pods, affinity routing, SLO admission at "
+          f"{FLEET_SLO_S}s, arrivals at {FLEET_FPS} fps (jitter "
+          f"{FLEET_JITTER}, seed 0, {FLEET_FRAMES} frames a stream); frames "
+          f"served by task {by_task}, by pod "
+          f"{[st.frames for st in fstats.pod_stats]}; {rendered} frames "
+          f"rendered; frame uploads: detection {det.frame_uploads}, action "
+          f"{act.frame_uploads} (open-loop rounds stage nothing); wall "
+          f"{wall:.1f}s; {card_line()}")
+    print(f"fleet launches: {launches}; of them the action path's "
+          f"{act_launches}; NMS rounds by (backend, rows, padded length) "
+          f"{nms_rounds}")
+    check(len(by_task) == 2 and all(by_task.values()),
+          f"the fleet served {by_task}, not both tasks")
+    check(launches.get("project_srois_batched", 0) > 0,
+          "the fleet's detection streams did not launch project_srois_batched")
+    check(act_launches.get("gnomonic_sample", 0) > 0,
+          "the fleet's action streams did not launch gnomonic_sample")
+    # the suppression runs on the card in the rounds whose rule picked it,
+    # one SphIoU and one greedy launch each
+    on_card = sum(n for (got, _, _), n in nms_rounds.items() if got == "cuda")
+    for k in ("sphiou_matrix_batch", "greedy_suppress_rows"):
+        check(0 < launches.get(k, 0) == on_card,
+              f"fleet: {k} launched {launches.get(k, 0)} times, the rule "
+              f"picked the card in {on_card} rounds")
+    fp, digests = stats_fingerprint(fstats), frame_digests(sink)
+    sink2 = MemorySink()
+    again = fleet_run(det_params, act_params, sink2)[0]
+    same_fp = stats_fingerprint(again) == fp
+    same_dig = frame_digests(sink2) == digests
+    print(f"fleet run twice: report fingerprint equal {same_fp}; "
+          f"{len(digests)} per-frame detection digests equal {same_dig}")
+    check(same_fp and same_dig, "the fleet is not deterministic")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 15: granite-34b's dense serving path
+# --------------------------------------------------------------------------
+
+# granite-34b's layers kept of its 88, batch, prompt tokens, decode steps
+GRANITE_RUN = (8, 1, 4096, 32)
+
+
+def run_granite_path() -> dict:
+    """Phase 15: granite-34b at published width (MQA: 48 query heads on
+    one KV head of 128), ``GRANITE_RUN``'s depth, bf16 weights from a
+    seeded generator, ``attention_impl="flash"`` (the tensor-core kernel
+    at row 6e's layout): prefill and greedy decode, each layer's attention
+    and the logits against ``chunked``, the tokens digest over two runs.
+    Returns the launches (counted from 0 before the first run, read after
+    it)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import granite_34b
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    from repro_torch.training.steps import lm_decode_step, lm_prefill_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    n_layers, b, s, n_dec = GRANITE_RUN
+    full = granite_34b.full_config()
+    cfg = dataclasses.replace(full, n_layers=n_layers,
+                              attention_impl="flash")
+    dev = torch.device("cuda")
+    params = T.init_params(torch.Generator(device=dev).manual_seed(31), cfg,
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    gbytes = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    print(f"granite path: {cfg.name}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head} (MQA), d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, attention_impl=flash, init "
+          f"{time.perf_counter() - t0:.1f}s")
+    print(f"reduced: {cfg.name} {full.n_layers} -> {n_layers} layers "
+          f"({n_params / 1e9:.2f}B bf16 parameters, {gbytes:.1f} GB; all "
+          f"{full.n_layers} would take {full.n_params * 2 / 1e9:.1f} GB), "
+          f"published widths")
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(32))
+    prefill = lm_prefill_step(cfg, s + n_dec)
+    decode = lm_decode_step(cfg)
+    prefill(params, {"tokens": tokens[:, :256]})  # warm-up: handles, library
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    logits, gen, prefill_ms, decode_ms, out = serve_lm(
+        params, prefill, decode, tokens, n_dec, "granite")
+    launches = _build.launch_counts()
+    check(tuple(out["k"].shape) == (n_layers, b, s + n_dec, 1, cfg.d_head),
+          f"granite cache {tuple(out['k'].shape)}")
+    del out
+    digest = tokens_digest(gen)
+    print(f"granite prefill B={b} S={s}: prefill ms per request "
+          f"{prefill_ms / b:.1f}; decode B={b}, {n_dec} greedy steps: decode "
+          f"ms per token {decode_ms:.2f}; {card_line()}")
+    print(f"granite generated tokens (B={b} x {n_dec}) sha256 {digest}; "
+          f"first {gen[0, :8].tolist()}")
+    print(f"granite launches: {launches} over one prefill of {n_layers} "
+          f"layers (decode attends with plain einsums)")
+    check(launches.get("flash_attention_wgmma", 0) == n_layers,
+          f"flash_attention_wgmma launched "
+          f"{launches.get('flash_attention_wgmma', 0)} times on granite's "
+          f"path, not {n_layers}")
+    check(launches.get("flash_attention", 0) == 0,
+          "the SIMT flash_attention launched on granite's bf16 path")
+    _, gen2, prefill_ms2, decode_ms2, _ = serve_lm(
+        params, prefill, decode, tokens, n_dec, "granite")
+    same = torch.equal(gen, gen2)
+    print(f"granite run twice: tokens digest equal {same}; prefill ms "
+          f"{prefill_ms2:.1f}, decode ms per token {decode_ms2:.2f}; "
+          f"{card_line()}")
+    check(same, "granite's generated tokens differ between two runs")
+    against_chunked(params, cfg, tokens, logits, s + n_dec, "granite")
+    check_each_layer(params, cfg, tokens, "granite", rows=1024)
+    del params
+    torch.cuda.empty_cache()
+    print(f"granite path: {time.perf_counter() - t0:.1f}s; {card_line()}")
+    return {k: launches.get(k, 0) for k in LM_KERNELS}
+
+
+def check_moe_decode(params, cfg, tokens, n_prompt: int) -> None:
+    """The first greedy decode step of a ``n_prompt``-token prompt against
+    a prefill over the prompt and that token, at a capacity factor where
+    no pick can drop (each expert's capacity is at least the tokens of
+    the call: ``n_experts / top_k``); a control with the token changed
+    must fail."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.training.steps import lm_decode_step, lm_prefill_step
+
+    nd = dataclasses.replace(cfg, capacity_factor=float(
+        cfg.n_experts // cfg.moe_top_k))
+    prompt = tokens[:1, :n_prompt]
+    routes: list = []
+    out = lm_prefill_step(nd, n_prompt + 1, routes)(params,
+                                                    {"tokens": prompt})
+    token = out["logits"].argmax(-1)
+    dec = lm_decode_step(nd, routes)(params, {
+        "token": token, "cache_k": out["k"], "cache_v": out["v"],
+        "cache_len": out["length"]})["logits"]
+
+    def prefilled(last):
+        return lm_prefill_step(nd, n_prompt + 1, routes)(params, {
+            "tokens": torch.cat([prompt, last[:, None]], 1)})["logits"]
+
+    want = prefilled(token)
+    control = prefilled((token + 1) % cfg.vocab_size)
+    dropped = int(sum(int((~r.keep).sum()) for r in routes))
+    err = float((dec - want).abs().max())
+    err_c = float((dec - control).abs().max())
+    print(f"MoE {cfg.name} decode against prefill: the first decode step "
+          f"after a {n_prompt}-token prompt against a prefill over the "
+          f"prompt and that token, capacity factor {nd.capacity_factor} "
+          f"(capacity {T.moe_capacity(nd, n_prompt + 1)} an expert at "
+          f"{n_prompt + 1} tokens, {T.moe_capacity(nd, 1)} in decode): "
+          f"max|err| {err:.3g} (tol {LM_LOGIT_ATOL}); picks dropped "
+          f"{dropped}; the control with the token changed {err_c:.3g} "
+          f"(fails)")
+    check(dropped == 0, f"{cfg.name}: {dropped} picks dropped at capacity "
+          f"factor {nd.capacity_factor}")
+    check(err <= LM_LOGIT_ATOL, f"{cfg.name} decode against prefill: {err}")
+    check(err_c > LM_LOGIT_ATOL, f"{cfg.name} decode against prefill: the "
+          f"control passes ({err_c})")
+
+
 def profile_call(fn, what: str) -> None:
     """One call of ``fn`` under the profiler: the card's busy share and
     its top kernels."""
@@ -3729,9 +4570,11 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     # each path's launches, counted from 0 just before it and read after
     by_path = {}
-    by_path["frame_loop"], det_params = run_main_path(profile=profile)
-    run_serve_launcher()
-    by_path["mixed_pod"] = run_mixed_path(det_params, profile=profile)
+    nms_rounds: dict = {}  # the serving paths' auto NMS rounds
+    with nms_rule_rounds(nms_rounds):
+        by_path["frame_loop"], det_params = run_main_path(profile=profile)
+        run_serve_launcher()
+        by_path["mixed_pod"] = run_mixed_path(det_params, profile=profile)
     del det_params
     run_replay_lane()
     by_path["lm"] = run_lm_path(profile=profile)
@@ -3744,6 +4587,16 @@ def main() -> int:
         run_diffusion_path(profile=profile)
     by_path["cells"] = run_cells_path()
     by_path["multi_device"] = run_multi_device_path()
+    t = time.perf_counter()
+    with nms_rule_rounds(nms_rounds):
+        by_path["serving_policies"], det_params = run_serving_policies()
+        by_path["fleet"] = run_fleet_path(det_params)
+    del det_params
+    check_nms_rounds(nms_rounds)
+    print(f"phase 14: {time.perf_counter() - t:.1f}s; {card}")
+    t = time.perf_counter()
+    by_path["lm_granite"] = run_granite_path()
+    print(f"phase 15: {time.perf_counter() - t:.1f}s; {card}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

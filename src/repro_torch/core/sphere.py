@@ -250,9 +250,15 @@ def sph_nms_host(
 # within memory — ~32M float64 elements on host, ~128M float32 on device.
 _HOST_CHUNK_ELEMS = 1 << 25
 _DEVICE_CHUNK_ELEMS = 1 << 27
-# "auto" picks the CUDA path only at B*N >= this; below it the launch
-# and copy overhead outweighs the handful of boxes involved.
-_AUTO_DEVICE_MIN_ELEMS = 512
+# "auto" picks the CUDA path only at B*N >= this.  On an H100 the
+# kernels, copies and synchronisation included, take 0.13-0.19 ms a call
+# at every B in {1, 2, 4, 8} and N in {8, ..., 256}, and beat the host
+# path at each of those shapes, from 1.3x at 2x8 and 1.5x at 1x8 up to
+# 171x at 2x256 (chip_smoke.py's "NMS crossover" lines).  8 is the
+# shortest row the pod pads to (``ShapeBuckets.nms_sizes``), so every
+# tick and every open-loop round takes the card; only an unpadded row
+# of fewer boxes, which was not timed, stays on the host.
+_AUTO_DEVICE_MIN_ELEMS = 8
 
 
 def _greedy_suppress_rows_np(

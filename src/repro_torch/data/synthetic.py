@@ -132,16 +132,17 @@ def render_erp(video: SyntheticVideo, frame: int,
     for det in video.visible_objects(frame):
         th, ph, dth, dph = det.box
         dlon = np.abs((lon - th + math.pi) % TWO_PI - math.pi)
-        in_lon = dlon <= dth / 2
-        in_lat = np.abs(lat - ph) <= dph / 2
-        mask = np.outer(in_lat, in_lon)
-        if not mask.any():
+        # the footprint is the product of a row set and a column set, so
+        # only its own rows and columns are touched
+        ys = np.flatnonzero(np.abs(lat - ph) <= dph / 2)
+        xs = np.flatnonzero(dlon <= dth / 2)
+        if not (ys.size and xs.size):
             continue
         obj = next(o for o in video.objects
                    if o.category == det.category and abs(o.phi - ph) < 1e-9)
-        ys, xs = np.nonzero(mask)
-        checker = (((ys // 2) + (xs // 2)) % 2).astype(np.float32) * 0.25 + 0.75
-        img[ys, xs] = obj.color[None, :] * checker[:, None]
+        checker = (((ys[:, None] // 2) + (xs[None, :] // 2)) % 2
+                   ).astype(np.float32) * 0.25 + 0.75
+        img[np.ix_(ys, xs)] = obj.color * checker[..., None]
     return img
 
 

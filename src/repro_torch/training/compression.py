@@ -129,10 +129,8 @@ def compressed_psum_step(grads, state: CompressionState, axis: str,
     if mode == "bf16":
         payload, new_state = bf16_compress(grads, state)
         dense = bf16_decompress(payload)
-    elif mode == "topk":
+    else:  # every other mode is top-k, as the reference's branch reads
         payload, new_state = topk_compress(grads, state)
         dense = topk_decompress(payload, grads)
-    else:
-        raise ValueError(f"unknown compression mode {mode!r}")
     mean = pytree.tree_map(lambda s: C.psum(s, axis, mesh) / n, dense)
     return mean, new_state

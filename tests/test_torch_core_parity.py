@@ -6,7 +6,10 @@ exactly, on seeded inputs (after ``tests/test_allocation.py``,
   through a ``CostHook`` (``apply_cost_hook``, ``plan_latency``);
 * Algorithm 1: ``predict_srois`` (SRoIs, their ccv and alpha), and
   ``compute_ccv``, ``size_level_in``;
-* object discovery: ``DiscoveryState``'s verdicts over a seeded trace.
+* object discovery: ``DiscoveryState``'s verdicts over a seeded trace;
+* the synthetic ERP raster (``render_erp``, which the port paints over
+  each object's rows and columns instead of a whole-frame mask), bit for
+  bit, the seam and the poles included.
 """
 
 from __future__ import annotations
@@ -20,9 +23,11 @@ import pytest
 from repro.core import allocation as j_alloc
 from repro.core import discovery as j_disc
 from repro.core import sroi as j_sroi
+from repro.data import synthetic as j_syn
 from repro_torch.core import allocation as t_alloc
 from repro_torch.core import discovery as t_disc
 from repro_torch.core import sroi as t_sroi
+from repro_torch.data import synthetic as t_syn
 
 
 def _instance(seed, m, r):
@@ -134,3 +139,17 @@ def test_discovery_matches_reference(seed):
         out[name] = verdicts
     assert out["t"] == out["j"]
     assert any(v for v, _ in out["t"]) and not all(v for v, _ in out["t"])
+
+
+@pytest.mark.parametrize("seed", [0, 21])
+def test_render_erp_matches_reference(seed):
+    # polar_fraction 0.3 puts objects over the poles; 60 objects over 8
+    # frames of yaw put some across the seam
+    kw = dict(n_frames=8, n_objects=60, seed=seed, polar_fraction=0.3)
+    t_video, j_video = t_syn.make_video(**kw), j_syn.make_video(**kw)
+    for f in (0, 3, 7):
+        for h, w in ((96, 192), (240, 480)):
+            got = t_syn.render_erp(t_video, f, height=h, width=w)
+            want = j_syn.render_erp(j_video, f, height=h, width=w)
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_array_equal(got, want)

@@ -53,6 +53,13 @@ float32 and bf16, with and without drops (output, aux and every
 gradient of ``sum(out**2)`` bit for bit: at one model rank the exchange
 moves nothing), and ``compressed_psum_step`` on the card equal to its
 compressor's payload, bit for bit.
+
+The serving policies and the LM paths never run before on the card: the
+pod under ``deadline`` and ``async`` (then ``flush``) against the same
+pod on the CPU (equal schedules, detections within 1e-3), the batched
+projection at the 1280 rung's crop size against the float64 map, and
+granite's MQA smoke config through the flash entry against ``chunked``
+on the CPU (prefill and decode logits and the cache within 1e-4).
 """
 
 from __future__ import annotations
@@ -562,7 +569,7 @@ class _Unstaged:
         return getattr(self._inner, name)
 
 
-def _card_pod(backend, videos):
+def _card_pod(backend, videos, **kw):
     from repro_torch.core.omnisense import OmniSenseLoop
     from repro_torch.serving import profiles
     from repro_torch.serving.network import NetworkModel
@@ -585,7 +592,7 @@ def _card_pod(backend, videos):
         return frames[(s, f)]
 
     return PodServer(loops, [backend] * len(videos), max_batch=8,
-                     frame_source=source)
+                     frame_source=source, **kw)
 
 
 @pytest.mark.cuda
@@ -623,6 +630,133 @@ def test_cuda_staged_pod_tick_equals_unstaged(cuda):
     pool = staged_b._pinned[(192, 384, 3)]
     assert len(pool) == len(videos)
     assert all(buf.is_pinned() and event.query() for buf, event in pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,ticks", [("deadline", 3), ("async", 4)])
+def test_cuda_policy_pod_matches_cpu(cuda, policy, ticks):
+    """``PodServer`` under ``deadline`` and ``async`` (then ``flush``) on
+    the card against the same pod on the CPU, tick by tick: equal
+    dispatches (variant and batch, in order) and each finished frame's
+    detections within 1e-3; the async pod carries requests, and nothing
+    is left queued, in flight or staged after the flush.
+
+    After each tick the CPU loops take the card loops' detection history:
+    SRoIs are predicted from it, and the float32 differences of the two
+    devices' detections (~1e-5), fed back tick after tick through a
+    random-weight detector, move the SRoIs and so the next tick's crops
+    and plans apart.  Each tick is held on the same inputs instead."""
+    cfgs = [dataclasses.replace(tdet.PAPER_LADDER[i], input_size=64,
+                                n_classes=16, width_mult=0.25,
+                                depth_mult=0.34) for i in (0, 1)]
+    params = [tdet.init_params(torch.Generator().manual_seed(i), c,
+                               device="cpu") for i, c in enumerate(cfgs)]
+    videos = [make_video(n_frames=8, n_objects=20, seed=s) for s in (7, 8, 9)]
+    pods, backends, done = [], [], []
+    for dev in (cuda, "cpu"):
+        backend = TorchDetectorBackend(cfgs, params, conf=0.01, max_det=4,
+                                       device=dev)
+        pod = _card_pod(backend, videos, policy=policy)
+        rows = []
+        for loop in pod.loops:
+            inner = loop.finalize_detections
+
+            def finalize(res, keep, inner=inner, rows=rows):
+                inner(res, keep)
+                rows.append(list(res.detections))
+
+            loop.finalize_detections = finalize
+        pods.append(pod)
+        backends.append(backend)
+        done.append(rows)
+    n = 0
+    for f in range(1, ticks + 2):  # the last round is the flush
+        for pod, rows in zip(pods, done):
+            rows.clear()
+            n_tl = len(pod.timelines)
+            pod.step(f) if f <= ticks else pod.flush()
+            pod.tick_events = [(ev.variant, ev.b) for tl in
+                               pod.timelines[n_tl:] for ev in tl.events]
+        assert pods[0].tick_events == pods[1].tick_events
+        assert len(done[0]) == len(done[1])
+        for got, want in zip(*done):
+            assert [d.category for d in got] == [d.category for d in want]
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a.box, b.box, atol=1e-3, rtol=0)
+                assert a.score == pytest.approx(b.score, abs=1e-3)
+            n += len(got)
+        for card_loop, host_loop in zip(pods[0].loops, pods[1].loops):
+            host_loop._history = [list(h) for h in card_loop._history]
+    card, host = (p.stats for p in pods)
+    assert card.frames == host.frames == len(videos) * ticks
+    assert (card.dispatches, card.batch_sizes, card.carried_requests) == \
+        (host.dispatches, host.batch_sizes, host.carried_requests)
+    if policy == "async":
+        assert card.carried_requests > 0
+    for pod, backend in zip(pods, backends):
+        assert not len(pod.queues) and not pod._inflight
+        assert not backend._staged
+    assert n > 0
+
+
+@pytest.mark.cuda
+def test_cuda_project_srois_batched_1280(cuda):
+    """The batched projection at the 1280 rung's crop size (two crops, one
+    with a pole inside) against the crops projected with a float64 map:
+    at most twice as far from them as the plain version, + 5e-5."""
+    frames = _erp(12, (480, 960, 3))[None].to(cuda)
+    centers = np.array([[0.7, 0.1], [-2.2, 1.2]], np.float32)
+    fovs = np.array([[1.1, 0.9], [1.4, 1.3]], np.float32)
+    got = tgno.project_srois_batched(frames, [0, 0], centers, fovs,
+                                     (1280, 1280))
+    ref = project_srois_ref(frames, torch.tensor([0, 0]),
+                            torch.from_numpy(centers), torch.from_numpy(fovs),
+                            (1280, 1280))
+    assert got.shape == (2, 1280, 1280, 3)
+    for i in range(2):
+        exact = project_sroi_f64(frames[0], float(centers[i, 0]),
+                                 float(centers[i, 1]), fovs[i].tolist(), 1280)
+        err_k = float((got[i].double() - exact).abs().max())
+        err_p = float((ref[i].double() - exact).abs().max())
+        assert err_k <= 2 * err_p + 5e-5
+
+
+@pytest.mark.cuda
+def test_cuda_granite_mqa_flash_matches_cpu_chunked(cuda):
+    """granite's smoke config (MQA: 4 query heads on 1 KV head) with
+    ``attention_impl="flash"`` on the card (the float32 kernel) against
+    ``chunked`` on the CPU: the prefill's and 4 decode steps' logits and
+    the one-head cache."""
+    from repro_torch.configs import granite_34b as tgranite
+
+    cfg = tgranite.smoke_config()
+    assert cfg.n_kv_heads == 1
+    params = tlm.init_params(torch.Generator().manual_seed(5), cfg,
+                             device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 52),
+                         generator=torch.Generator().manual_seed(6))
+    outs = {}
+    for dev, impl in ((cuda, "flash"), ("cpu", "chunked")):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        p = _to(params, dev)
+        before = _build.launch_counts().get("flash_attention", 0)
+        out = tsteps.lm_prefill_step(c, 52)(p, {"tokens": toks[:, :48]
+                                                .to(dev)})
+        if impl == "flash":
+            assert _build.launch_counts().get("flash_attention", 0) == \
+                before + cfg.n_layers
+        logits = [out["logits"].cpu()]
+        for i in range(48, 52):  # teacher-forced
+            out = tsteps.lm_decode_step(c)(p, {
+                "token": toks[:, i].to(dev), "cache_k": out["k"],
+                "cache_v": out["v"], "cache_len": out["length"]})
+            logits.append(out["logits"].cpu())
+        outs[impl] = (logits, out["k"].cpu())
+    (got, k_got), (want, k_want) = outs["flash"], outs["chunked"]
+    assert k_got.shape == (cfg.n_layers, 2, 52, 1, cfg.d_head)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    torch.testing.assert_close(k_got, k_want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

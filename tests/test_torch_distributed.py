@@ -527,6 +527,20 @@ class TestOneRankMesh:
         assert _same(_bits(mean), _bits(want))
         assert _same(_bits(new.residual), _bits(want_st.residual))
 
+    def test_world1_other_modes_are_topk(self, mesh):
+        """The reference's ``compressed_psum_step`` takes every mode but
+        ``"bf16"`` as top-k (its ``else`` branch,
+        ``src/repro/training/compression.py``); so does the port."""
+        from repro_torch.training import compression as comp
+
+        g = {"a": torch.randn(5, 7, generator=torch.Generator()
+                              .manual_seed(3)), "b": torch.randn(11)}
+        st = comp.CompressionState.zeros_like(g)
+        none = comp.compressed_psum_step(g, st, "data", "none", mesh)
+        topk = comp.compressed_psum_step(g, st, "data", "topk", mesh)
+        assert _same(_bits(none[0]), _bits(topk[0]))
+        assert _same(_bits(none[1].residual), _bits(topk[1].residual))
+
 
 def test_a2a_wire_bytes_on_a_fake_process_group():
     """``hloanalysis.analyze`` of one rank's ``moe_block_a2a`` on the

@@ -296,6 +296,35 @@ def test_moe_serving_steps_match_reference(name, dtype, atol, wide_einsum):
     assert t_out["k"].shape[2] == (16 if name == "mixtral" else MAX_LEN)
 
 
+@pytest.mark.parametrize("impl", ["chunked", "flash"])
+@pytest.mark.parametrize("dtype,atol", DTYPE_ATOL)
+def test_granite_mqa_serving_steps_match_reference(dtype, atol, impl):
+    """granite's dense MQA (one KV head for all query heads) through the
+    port's prefill and decode steps, under the chunked attention and the
+    flash entry (its plain version on the CPU), against the reference's
+    chunked steps: the logits of every step and the one-head cache."""
+    dt = getattr(jnp, dtype)
+    jcfg = dataclasses.replace(jgranite.smoke_config(), param_dtype=dt,
+                               compute_dtype=dt)
+    jp, tcfg, tp = _pair(jcfg, seed=10)
+    tcfg = dataclasses.replace(tcfg, attention_impl=impl)
+    assert tcfg.n_kv_heads == 1 < tcfg.n_heads
+    toks = _tokens(jcfg.vocab_size, seed=11)
+    j_logits, j_out = _serve(jax.jit(JS.lm_prefill_step(jcfg, MAX_LEN)),
+                             jax.jit(JS.lm_decode_step(jcfg)), jp, toks,
+                             jnp.asarray)
+    t_logits, t_out = _serve(TS.lm_prefill_step(tcfg, MAX_LEN),
+                             TS.lm_decode_step(tcfg), tp, toks,
+                             lambda a: torch.from_numpy(np.asarray(a)).long())
+    for got, ref in zip(t_logits, j_logits):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol)
+    assert t_out["k"].shape == j_out["k"].shape == (
+        tcfg.n_layers, 2, MAX_LEN, 1, tcfg.d_head)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_np(t_out[key]), _np(j_out[key]),
+                                   atol=atol)
+
+
 # --------------------------------------------------------------------------
 # parameters and configs
 # --------------------------------------------------------------------------

@@ -143,12 +143,17 @@ def test_sph_nms_batch_auto_and_errors():
 def test_auto_nms_sends_rows_longer_than_the_greedy_kernel_to_host(
         monkeypatch):
     """With a card present, ``auto`` takes the CUDA kernels for a tick's
-    rows and the host path for rows longer than the greedy kernel's
+    rows and for one frame's row of 8 boxes or more (the pod's shortest
+    padded row), and the host path below that and for rows longer than
+    the greedy kernel's
     ``MAX_N``, on which the kernel raises.  The keep mask is checked on
     rows just past a lowered limit: a row of ``MAX_N + 1`` would make an
     8193 x 8193 float64 IoU on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tsphere.nms_auto_backend(4, 128) == "cuda"
+    # one frame's row from 8 boxes on (an open-loop round), not below
+    assert tsphere.nms_auto_backend(1, 8) == "cuda"
+    assert tsphere.nms_auto_backend(1, 4) == "host"
     assert tsphere.nms_auto_backend(1, MAX_N) == "cuda"
     assert tsphere.nms_auto_backend(1, MAX_N + 1) == "host"
     assert tsphere.nms_auto_backend(64, MAX_N + 1) == "host"
