@@ -283,7 +283,39 @@ Phases, in order; any failure exits non-zero:
    Phase 8 also decodes qwen3-moe 16 greedy tokens and holds its first
    decode step after a 1024-token prompt to a prefill over the prompt and
    that token (``check_moe_decode``: a capacity factor at which no pick
-   drops; the control with the token changed fails).
+   drops; the control with the token changed fails);
+16. mixtral-8x22b's MoE training at published width (``full_config()``,
+   bf16, ``chunked`` attention, remat, ``ce_chunk`` 256), ``reduced`` to
+   ``MOE_TRAIN_LAYERS`` of its 56 layers and ``train_4k``'s global batch
+   to ``MOE_TRAIN_BATCH`` x 4096: the update's reckoned peak with float32
+   and with bf16 moments and the predicted step time are printed
+   (``moe_train_reckoning``), then ``MOE_TRAIN_STEPS`` ``lm_train_step``s
+   of ``adamw(lr=1e-3, warmup_steps=10, state_dtype=bfloat16)`` on
+   ``lm_batches`` through ``Prefetcher``: ms a step, tokens/s, loss, aux
+   loss, grad norm, picks dropped and peak memory.  Checks, each with a
+   control that must fail: (a) every gradient leaf finite and each group
+   (embed, unembed, attention, norms, router, each expert stack)
+   non-zero; (b) the first batch's per-token NLL within
+   ``TRAIN_NLL_ATOL`` of the float32 policy's (the shifted-target
+   control); (c) layer 0's MoE block's gradients (x, the router, the
+   three expert stacks) within ``MOE_GRAD_RTOL`` of the float32 policy's
+   (another cotangent's as the control); (d) one step run twice from one
+   state gives the same sha256 of the new parameters and moments (a
+   parameter one ulp up gives another).  Launch counts are set to 0
+   before the phase and read after (``moe_train``);
+17. the training shapes the card had not run: ``cls_384`` (64 x 384²)
+   for the four vision archs (ViT-B/16 through ``config_for_res(384)``):
+   the gradient check, ``VISION_TRAIN_STEPS`` steps and the bf16 logits
+   against the float32 policy's at 384; ``train_1024`` (128² latents) for
+   unet-sdxl and flux-dev (on ``FLUX_TRAIN_BLOCKS``), the batch halved
+   until its reckoned peak stays under ``DIFF_1024_PEAK_GB``
+   (``reduced``), the gradient check and ``DIFF_1024_STEPS`` steps; and
+   unet-sdxl's ``gen_1024`` sample whole (4 x 128², 50 DDIM steps): ms a
+   step, samples/s, peak memory and the latents' digest, the digest after
+   ``DIFF_GEN1024_STEPS`` steps equal to phase 11's and the one a step
+   later not.  Launch counts are set to 0 before each of the three paths
+   and read after (``vision_train_384``, ``diffusion_train_1024``,
+   ``diffusion_gen_1024``).
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -295,9 +327,9 @@ suppression), for the same use; it prints no result line either.
 
 ``--profile`` also profiles the last pod tick, the last mixed tick, one
 LM prefill step and four decode steps of smollm-135m and of mixtral-8x22b,
-one train step of smollm-135m, of yolo-p6-1280 and of each vision arch,
-and one ``gen_fast`` denoise step and one train step of each diffusion
-arch:
+one train step of smollm-135m, of yolo-p6-1280, of each vision arch and
+of mixtral-8x22b's MoE layer, and one ``gen_fast`` denoise step and one
+train step of each diffusion arch:
 the card's busy share of each, its host-to-device copies, its top kernels
 and the frame loop's kernels among them.
 
@@ -307,7 +339,8 @@ phase 7, the MoE LM of phase 8, the LM's and the detector's training of
 phase 9, the vision serve and train paths of phase 10, the diffusion
 serve and train paths of phase 11, the cells of phase 12, the
 multi-device path of phase 13, all seven 0 on one card, the serving
-policies and the fleet of phase 14 and granite of phase 15),
+policies and the fleet of phase 14, granite of phase 15, and the MoE
+training of phase 16 and the three paths of phase 17, all four 0),
 the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
@@ -2334,6 +2367,36 @@ def token_nll(params, batch, cfg):
     return torch.cat(out, 1)
 
 
+def check_policy_nll(params, batch, cfg, what: str) -> None:
+    """The per-token NLL of ``batch`` under ``cfg``'s bf16 policy against
+    the float32 policy's on the widened weights (freed before the
+    control): mean |diff| within ``TRAIN_NLL_ATOL``, which the control
+    (the targets shifted by one token) must fail."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import pytree
+
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    nll = token_nll(params, batch, cfg)
+    nll32 = token_nll(pytree.tree_map(lambda t: t.float(), params), batch,
+                      cfg32)
+    shifted = dict(batch, targets=batch["targets"].roll(1, 1))
+    nll_ctl = token_nll(params, shifted, cfg)
+    err = float((nll - nll32).abs().mean())
+    ctl = float((nll_ctl - nll32).abs().mean())
+    print(f"{what}: bf16 per-token NLL (mean {float(nll.mean()):.6f}) "
+          f"against the float32 policy's (mean {float(nll32.mean()):.6f}): "
+          f"mean |diff| {err:.4g}, max {float((nll - nll32).abs().max()):.4g}"
+          f" (limit {TRAIN_NLL_ATOL}); the control with the targets shifted "
+          f"by one token {ctl:.4g}")
+    check(err <= TRAIN_NLL_ATOL, f"{what}: NLL against float32: {err}")
+    check(ctl > TRAIN_NLL_ATOL,
+          f"the shifted-target control passed the NLL check: {ctl}")
+
+
 def check_grads(grads, groups: dict, what: str) -> None:
     """Every leaf of ``grads`` finite; each named group's non-zero."""
     import torch
@@ -2400,7 +2463,6 @@ def run_lm_train(profile: bool) -> None:
     1e-3, warmup_steps=10)`` on ``lm_batches`` through ``Prefetcher``;
     ``save_async`` after step ``TRAIN_SAVE_AT``, restored into a fresh
     ``make_state`` template, which runs the later steps again."""
-    import dataclasses
     import tempfile
 
     import torch
@@ -2464,25 +2526,8 @@ def run_lm_train(profile: bool) -> None:
 
     # (b) step 1's per-token NLL against the float32 policy's, and the
     # control with the targets shifted by one token
-    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
-                                compute_dtype=torch.float32)
-    nll = token_nll(params, batches[0], cfg)
-    nll32 = token_nll(pytree.tree_map(lambda t: t.float(), params),
-                      batches[0], cfg32)
-    shifted = dict(batches[0], targets=batches[0]["targets"].roll(1, 1))
-    nll_ctl = token_nll(params, shifted, cfg)
-    err = float((nll - nll32).abs().mean())
-    ctl = float((nll_ctl - nll32).abs().mean())
-    print(f"smollm-135m step 1 loss {losses[0]:.6f}: bf16 per-token NLL "
-          f"(mean {float(nll.mean()):.6f}) against the float32 policy's "
-          f"(mean {float(nll32.mean()):.6f}): mean |diff| {err:.4g}, max "
-          f"{float((nll - nll32).abs().max()):.4g} (limit {TRAIN_NLL_ATOL}); "
-          f"the control with the targets shifted by one token {ctl:.4g}")
-    check(err <= TRAIN_NLL_ATOL,
-          f"smollm-135m step 1 NLL against float32: {err}")
-    check(ctl > TRAIN_NLL_ATOL,
-          f"the shifted-target control passed the NLL check: {ctl}")
-    del nll, nll32, nll_ctl
+    check_policy_nll(params, batches[0], cfg,
+                     f"{cfg.name} step 1 loss {losses[0]:.6f}")
 
     # (c) the restored state equals the saved one bit for bit
     mgr.wait()
@@ -2752,12 +2797,10 @@ def serve_vision(arch: str, seed: int) -> None:
     """``vision_serve_step`` of ``arch``'s ``full_config()`` at
     ``serve_b128`` and ``serve_b1`` (ms a batch, images/s, peak memory),
     then the bf16 logits against the float32 policy's and the control."""
-    import dataclasses
     import importlib
 
     import torch
 
-    from repro_torch import pytree
     from repro_torch.configs.base import VISION_SHAPES
     from repro_torch.models import vision as V
     from repro_torch.training import steps as steps_mod
@@ -2793,7 +2836,27 @@ def serve_vision(arch: str, seed: int) -> None:
               f"{ms:.2f} ms a batch, {spec.batch / ms * 1e3:.0f} images/s, "
               f"peak memory {peak:.2f} GB")
 
-    # the bf16 logits against the float32 policy's on the same weights
+    check_vision_policy(cfg, params, seed)
+
+
+def check_vision_policy(cfg, params, seed: int,
+                        weights_control: bool = False) -> None:
+    """The bf16 serve logits of 8 images at ``cfg.img_res`` against the
+    float32 policy's on the same weights, within ``VISION_BF16_RTOL``; the
+    control is another batch's float32 logits, or with
+    ``weights_control`` the same batch's float32 logits from weights drawn
+    from another seed (another batch's reading is then printed beside it:
+    at random init a ResNet's logits barely depend on the image at 384,
+    within 3% from batch to batch)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.models import vision as V
+    from repro_torch.training import steps as steps_mod
+
+    step = steps_mod.vision_serve_step(cfg)
     images = vision_images(8, cfg.img_res, seed + 100)
     other = vision_images(8, cfg.img_res, seed + 200)
     cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
@@ -2802,13 +2865,22 @@ def serve_vision(arch: str, seed: int) -> None:
     step32 = steps_mod.vision_serve_step(cfg32)
     l16 = step(params, {"images": images})["logits"]
     l32 = step32(params32, {"images": images})["logits"]
-    ctl = step32(params32, {"images": other})["logits"]
+    batch_err = float((step32(params32, {"images": other})["logits"]
+                       - l32).norm() / l32.norm())
+    ctl_err, what = batch_err, "another batch's float32 logits"
+    if weights_control:
+        del params32
+        drawn = V.init_params(torch.Generator(device=images.device)
+                              .manual_seed(seed + 300), cfg32,
+                              device=images.device)
+        ctl = step32(drawn, {"images": images})["logits"]
+        ctl_err = float((ctl - l32).norm() / l32.norm())
+        what = (f"the float32 logits from weights of another seed (another "
+                f"batch's float32 logits {batch_err:.4g})")
     err = float((l16 - l32).norm() / l32.norm())
-    ctl_err = float((ctl - l32).norm() / l32.norm())
     print(f"{cfg.name} bf16 logits against the float32 policy's (8 x "
           f"{cfg.img_res}², TF32 off): |l16 - l32| / |l32| {err:.4g} (limit "
-          f"{VISION_BF16_RTOL}); the control, another batch's float32 "
-          f"logits, {ctl_err:.4g}")
+          f"{VISION_BF16_RTOL}); the control, {what}, {ctl_err:.4g}")
     check(err <= VISION_BF16_RTOL, f"{cfg.name}: bf16 logits {err} from "
           f"the float32 policy's")
     check(ctl_err > VISION_BF16_RTOL, f"{cfg.name}: the control passed the "
@@ -2857,6 +2929,67 @@ def serve_backbone_detectors() -> None:
         del params, outs
 
 
+def check_vision_grads(cfg, params, batch) -> None:
+    """The gradients at ``params`` on ``batch``: every leaf finite, every
+    trainable one non-zero; the BN stats' are 0 by construction (the loss
+    reads the batch's statistics, not the running ones)."""
+    import torch
+
+    from repro_torch.training import steps as steps_mod
+
+    def loss_fn(p):
+        logits, _ = steps_mod.vision_apply(p, batch["images"], cfg,
+                                           train=True)
+        return torch.nn.functional.cross_entropy(logits,
+                                                 batch["labels"].long())
+
+    _, grads = steps_mod.value_and_grad(loss_fn, params)
+    groups = vision_groups(grads)
+    bad = [k for k, g in groups if not bool(torch.isfinite(g).all())]
+    zero = [k for k, g in groups if not is_bn_stat(k)
+            and not bool((g != 0).any())]
+    stats = [k for k, g in groups if is_bn_stat(k)]
+    stat_nonzero = [k for k in stats if bool((dict(groups)[k] != 0).any())]
+    n_train = len(groups) - len(stats)
+    print(f"{cfg.name} gradients: {len(groups)} leaves finite"
+          f"{'' if not bad else f' except {bad}'}; {n_train - len(zero)} "
+          f"of {n_train} trainable leaves non-zero; {len(stats)} BN "
+          f"mean/var leaves zero by construction"
+          + (f" (non-zero: {stat_nonzero})" if stat_nonzero else ""))
+    check(not bad, f"{cfg.name}: non-finite gradients {bad}")
+    check(not zero, f"{cfg.name}: zero gradients in {zero}")
+    check(not stat_nonzero, f"{cfg.name}: BN stat gradients {stat_nonzero}")
+
+
+def vision_train_steps(cfg, step, held: list, batches):
+    """``step`` over ``batches`` from the state that ``held`` holds
+    (popped: the loop keeps the one reference to the state, so that each
+    input state is freed once its successor exists): ms a step, images/s,
+    loss, grad norm, accuracy, then the peak memory.  Returns the last
+    state."""
+    import torch
+
+    state = held.pop()
+    b = batches[0]["images"].shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        print(f"{cfg.name} train step {int(m['step'])}: {ms:.1f} ms, "
+              f"{b / ms * 1e3:.0f} images/s, loss {float(m['loss']):.6f}, "
+              f"grad norm {float(m['grad_norm']):.6f}, accuracy "
+              f"{float(m['accuracy']):.4f}")
+        check(math.isfinite(float(m["loss"]))
+              and math.isfinite(float(m["grad_norm"])),
+              f"{cfg.name}: non-finite loss or grad norm")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{cfg.name} train: batch {b}, peak memory {peak:.2f} GB")
+    return state
+
+
 def train_vision(arch: str, seed: int, profile: bool) -> None:
     """``VISION_TRAIN_STEPS`` ``vision_train_step``s of ``arch``'s
     ``full_config()`` (bf16, remat) at ``cls_224`` with ``adamw(lr=1e-3,
@@ -2890,52 +3023,11 @@ def train_vision(arch: str, seed: int, profile: bool) -> None:
     print(f"vision train: {cfg.name}, bf16, remat={cfg.remat}, batch {b} x "
           f"{spec.img_res}² (cls_224), adamw lr 1e-3 warmup 10")
 
-    # the gradients at the initial weights: every leaf finite, every
-    # trainable one non-zero; the BN stats' are 0 by construction (the
-    # loss reads the batch's statistics, not the running ones)
-    def loss_fn(p):
-        logits, _ = steps_mod.vision_apply(p, batches[0]["images"], cfg,
-                                           train=True)
-        return torch.nn.functional.cross_entropy(
-            logits, batches[0]["labels"].long())
-
-    _, grads = steps_mod.value_and_grad(loss_fn, params)
-    groups = vision_groups(grads)
-    bad = [k for k, g in groups if not bool(torch.isfinite(g).all())]
-    zero = [k for k, g in groups if not is_bn_stat(k)
-            and not bool((g != 0).any())]
-    stats = [k for k, g in groups if is_bn_stat(k)]
-    stat_nonzero = [k for k in stats if bool((dict(groups)[k] != 0).any())]
-    n_train = len(groups) - len(stats)
-    print(f"{cfg.name} gradients: {len(groups)} leaves finite"
-          f"{'' if not bad else f' except {bad}'}; {n_train - len(zero)} "
-          f"of {n_train} trainable leaves non-zero; {len(stats)} BN "
-          f"mean/var leaves zero by construction"
-          + (f" (non-zero: {stat_nonzero})" if stat_nonzero else ""))
-    check(not bad, f"{cfg.name}: non-finite gradients {bad}")
-    check(not zero, f"{cfg.name}: zero gradients in {zero}")
-    check(not stat_nonzero, f"{cfg.name}: BN stat gradients {stat_nonzero}")
-    del grads, groups
-
+    check_vision_grads(cfg, params, batches[0])
     opt = opt_mod.adamw(lr=1e-3, warmup_steps=10)
     step = steps_mod.vision_train_step(cfg, opt)
-    state = steps_mod.make_state(params, opt)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for batch in batches:
-        t = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        print(f"{cfg.name} train step {int(m['step'])}: {ms:.1f} ms, "
-              f"{b / ms * 1e3:.0f} images/s, loss {float(m['loss']):.6f}, "
-              f"grad norm {float(m['grad_norm']):.6f}, accuracy "
-              f"{float(m['accuracy']):.4f}")
-        check(math.isfinite(float(m["loss"]))
-              and math.isfinite(float(m["grad_norm"])),
-              f"{cfg.name}: non-finite loss or grad norm")
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"{cfg.name} train: batch {b}, peak memory {peak:.2f} GB")
+    state = vision_train_steps(cfg, step, [steps_mod.make_state(params, opt)],
+                               batches)
 
     if isinstance(cfg, V.ResNetConfig):
         before = [t for k, t in vision_groups(params) if is_bn_stat(k)]
@@ -3018,6 +3110,8 @@ DIFF_TRAIN_STEPS = 3
 # (1, 2, 3); 2 x 32² latents) it read 0.0068 (flux) and 0.0055-0.0065
 # (UNet), the controls 0.50 and 0.75-0.76
 DIFF_BF16_RTOL = 0.05
+# the sampled latents' digests of this run, by (model name, shape)
+SERVE_DIGESTS: dict = {}
 
 
 def run_diffusion_path(profile: bool = False) -> tuple[dict, dict]:
@@ -3168,6 +3262,7 @@ def serve_diffusion(arch: str, seed: int, profile: bool) -> tuple:
               f"{cfg.name} {shape}: latents {tuple(x.shape)} {x.dtype}")
         ms = sum(times) / len(times)
         digest = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+        SERVE_DIGESTS[(cfg.name, shape)] = digest
         whole = "whole sample" if steps == spec.steps else \
             f"{steps} of its {spec.steps} steps"
         print(f"{cfg.name} {shape} ({spec.batch} x {res}² latents, {whole}): "
@@ -3219,6 +3314,55 @@ def serve_diffusion(arch: str, seed: int, profile: bool) -> tuple:
     return {"cfg": cfg, "params": params}
 
 
+def check_diffusion_grads(cfg, params, batch) -> None:
+    """The gradients at ``params`` on ``batch``: every leaf finite, every
+    one non-zero (flux's modulation is drawn non-zero, so no block is
+    gated off: no leaf is zero by construction)."""
+    import torch
+
+    from repro_torch.models import diffusion as D
+    from repro_torch.training import steps as steps_mod
+
+    loss_fn = D.flux_rf_loss if isinstance(cfg, D.MMDiTConfig) \
+        else D.unet_eps_loss
+    _, grads = steps_mod.value_and_grad(
+        lambda p: loss_fn(p, batch, cfg, 0), params)
+    groups = vision_groups(grads)
+    bad = [k for k, g in groups if not bool(torch.isfinite(g).all())]
+    zero = [k for k, g in groups if not bool((g != 0).any())]
+    print(f"{cfg.name} gradients: {len(groups)} leaves, "
+          f"{len(groups) - len(bad)} finite, {len(groups) - len(zero)} "
+          f"non-zero; 0 zero by construction")
+    check(not bad, f"{cfg.name}: non-finite gradients {bad}")
+    check(not zero, f"{cfg.name}: zero gradients in {zero}")
+
+
+def diffusion_train_steps(cfg, step, held: list, batches):
+    """``step`` over ``batches`` from the state that ``held`` holds
+    (popped, as :func:`vision_train_steps` pops it): ms a step, images/s,
+    loss, grad norm, then the peak memory.  Returns the last state."""
+    import torch
+
+    state = held.pop()
+    b = batches[0]["latents"].shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        print(f"{cfg.name} train step {int(m['step'])}: {ms:.1f} ms, "
+              f"{b / ms * 1e3:.1f} images/s, loss {loss:.6f}, grad norm "
+              f"{gnorm:.6f}")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"{cfg.name}: non-finite loss or grad norm")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{cfg.name} train: batch {b}, peak memory {peak:.2f} GB")
+    return state
+
+
 def train_diffusion(arch: str, held: dict, seed: int, profile: bool
                     ) -> None:
     """``DIFF_TRAIN_STEPS`` ``diffusion_train_step``s (remat, ``adamw(lr=
@@ -3264,43 +3408,12 @@ def train_diffusion(arch: str, held: dict, seed: int, profile: bool
           f"{'' if b == spec.batch else f'; its batch {spec.batch} cut to {b}'}"
           f"), adamw lr 1e-3 warmup 10")
 
-    # the gradients at the initial weights: every leaf finite, every one
-    # non-zero (flux's modulation is drawn non-zero, so no block is gated
-    # off: no leaf is zero by construction)
-    loss_fn = D.flux_rf_loss if is_flux else D.unet_eps_loss
-    _, grads = steps_mod.value_and_grad(
-        lambda p: loss_fn(p, batches[0], cfg, 0), params)
-    groups = vision_groups(grads)
-    bad = [k for k, g in groups if not bool(torch.isfinite(g).all())]
-    zero = [k for k, g in groups if not bool((g != 0).any())]
-    print(f"{cfg.name} gradients: {len(groups)} leaves, "
-          f"{len(groups) - len(bad)} finite, {len(groups) - len(zero)} "
-          f"non-zero; 0 zero by construction")
-    check(not bad, f"{cfg.name}: non-finite gradients {bad}")
-    check(not zero, f"{cfg.name}: zero gradients in {zero}")
-    del grads, groups
-
+    check_diffusion_grads(cfg, params, batches[0])
     opt = opt_mod.adamw(lr=1e-3, warmup_steps=10)
     step = steps_mod.diffusion_train_step(cfg, opt)
-    state = steps_mod.make_state(params, opt)
+    held_state = [steps_mod.make_state(params, opt)]
     del params
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # the loop here rebinds the one reference to the state, so that a
-    # step's input state is freed once the next step has its output
-    for batch in batches:
-        t = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        print(f"{cfg.name} train step {int(m['step'])}: {ms:.1f} ms, "
-              f"{b / ms * 1e3:.1f} images/s, loss {loss:.6f}, grad norm "
-              f"{gnorm:.6f}")
-        check(math.isfinite(loss) and math.isfinite(gnorm),
-              f"{cfg.name}: non-finite loss or grad norm")
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"{cfg.name} train: batch {b}, peak memory {peak:.2f} GB")
+    state = diffusion_train_steps(cfg, step, held_state, batches)
 
     if not is_flux:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_diffusion_") as d:
@@ -4522,6 +4635,600 @@ def _leaves(tree):
         yield tree
 
 
+# --------------------------------------------------------------------------
+# phase 16: mixtral-8x22b's MoE training
+# --------------------------------------------------------------------------
+
+# mixtral-8x22b at published width trains on MOE_TRAIN_LAYERS of its 56
+# layers (one layer is 2.907B parameters: a second does not fit one card
+# with any AdamW state), on train_4k's sequence with its global batch of
+# 256 cut to MOE_TRAIN_BATCH, MOE_TRAIN_STEPS steps of adamw with bf16
+# moments (moe_train_reckoning: float32 moments do not fit)
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 1, 2, 3
+# the step-time prediction's float32 rate: cuBLAS's SGEMM on the H100
+# (67 TFLOP/s peak outside the tensor cores), which the expert products
+# and the CE's logits run on under autograd (both widen bf16 operands)
+MOE_TRAIN_F32_FLOPS = 50e12
+# the MoE block's gradients (x, the router, the three expert stacks) under
+# bf16 against the float32 policy, on MOE_GRAD_TOKENS of the batch's
+# tokens routed alike under both, as relative Frobenius errors.  From the
+# same input and weight values, the bf16 path rounds to bf16 (unit
+# roundoff 2^-8) on the way to each gradient: the router logits, the
+# SwiGLU hidden, each expert output, the gate, the gated product and the
+# pick sum in the forward; the cotangent, the gated cotangent, the
+# hidden's cotangent, the widened operands' cotangents and the gradient
+# itself in the backward.  At most 8 such roundings lie on one path, so
+# to first order each gradient lies within 8 u = 2^-5 of the float32
+# policy's.  The control is the bf16 gradients under another seeded
+# cotangent, which lie ~sqrt(2) away
+MOE_GRAD_TOKENS = 512
+MOE_GRAD_RTOL = 8 * 2.0 ** -8
+
+
+def moe_train_reckoning(params, cfg, b: int, s: int) -> dict:
+    """The train step's predicted peak memory (bytes) with float32 and
+    with bf16 AdamW moments, and its predicted ms.  The peak is in the
+    update: the caller's state (bf16 parameters, the two moments), the
+    bf16 gradients that ``_train_step`` keeps alive, their float32
+    clipped copies, the new parameters and moments of the leaves done so
+    far (``jax.tree.flatten`` order), and ~24 bytes an element of the
+    leaf in hand (``upd``'s float32 temporaries)."""
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+
+    leaves = pytree.leaves(params)
+    n = sum(t.numel() for t in leaves)
+
+    def peak(moment_bytes: int) -> float:
+        base = (2 + 2 + 2 * moment_bytes + 4) * n
+        done, best = 0, 0
+        for t in leaves:
+            best = max(best, base + (2 + 2 * moment_bytes) * done
+                       + 24 * t.numel())
+            done += t.numel()
+        return best
+
+    # float32 FLOPs a step: each expert product and the CE's logits run
+    # four times (forward, remat's forward, two backward products)
+    cap = T.moe_capacity(cfg, b * s)
+    expert = 3 * 2 * cfg.n_experts * cap * cfg.d_model * cfg.d_ff_expert
+    ce = 2 * b * s * cfg.d_model * cfg.vocab_size
+    flops = 4 * (expert * cfg.n_layers + ce)
+    return {"n": n, "widest": max(t.numel() for t in leaves),
+            "peak_f32": peak(4), "peak_bf16": peak(2), "flops": flops,
+            "ms": flops / MOE_TRAIN_F32_FLOPS * 1e3}
+
+
+def state_digest(tree) -> str:
+    """A digest of every leaf's bits, computed on the leaves' device: each
+    leaf's 16- or 32-bit words, each times a pseudo-random odd 64-bit
+    weight of its index (a multiply-xorshift hash), summed wrapping at
+    2^64; then sha256 over those sums, the leaves' shapes and dtypes, in
+    ``jax.tree.flatten`` order.  A change of any word changes the sum (an
+    odd weight times a non-zero difference of under 2^32 is not 0 mod
+    2^64).  sha256 of the bytes copied to the host took ~8 s a digest for
+    mixtral's 17.4 GB of parameters and moments (beside an NVIDIA H100
+    80GB HBM3 at 700.00 W)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch import pytree
+
+    k1, k2 = -0x61C8864680B583EB, -0x40A7B892E31B1A47  # odd, as int64
+    chunk = 1 << 26
+    h = hashlib.sha256()
+    for leaf in pytree.leaves(tree):
+        flat = leaf.detach().reshape(-1)
+        words = flat.view(torch.int16 if flat.element_size() == 2
+                          else torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for lo in range(0, words.numel(), chunk):
+            w = torch.arange(lo, min(lo + chunk, words.numel()),
+                             dtype=torch.int64, device=flat.device) * k1
+            w = (w ^ (w >> 29)) * k2
+            w |= 1
+            acc += (w * words[lo:lo + chunk].to(torch.int64)).sum()
+        h.update(f"{tuple(leaf.shape)} {leaf.dtype} {int(acc)};".encode())
+    return h.hexdigest()[:16]
+
+
+def moe_route_stats(params, batch, cfg) -> tuple[float, int, int]:
+    """A no-grad forward's (MoE aux loss, picks dropped, picks): the
+    routing the train step's forward takes at these parameters."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    routes: list = []
+    with torch.no_grad():
+        _, aux = T.forward(params, batch["tokens"], cfg, routes=routes)
+    return (float(aux), sum(int((~r.keep).sum()) for r in routes),
+            sum(r.keep.numel() for r in routes))
+
+
+def run_moe_train(profile: bool = False) -> dict:
+    """Phase 16; returns the launches of the MoE train path (none: its
+    attention is ``chunked``, and ``flash_attention`` has no backward)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.configs import mixtral_8x22b
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.data.pipeline import Prefetcher, lm_batches
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    card = card_line()
+    full = mixtral_8x22b.full_config()
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    spec = LM_SHAPES["train_4k"]
+    b, s = MOE_TRAIN_BATCH, spec.seq_len
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(160), cfg,
+                           device=dev)
+    torch.cuda.synchronize()
+    rk = moe_train_reckoning(params, cfg, b, s)
+    per_layer = sum(x.numel() for x in pytree.leaves(params["layers"]))
+    print(f"MoE train path: {cfg.name} at published width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, {cfg.n_experts} experts top-{cfg.moe_top_k}, "
+          f"d_ff_expert {cfg.d_ff_expert}, vocab {cfg.vocab_size}, window "
+          f"{cfg.window}, bf16, attention_impl={cfg.attention_impl}, "
+          f"remat={cfg.remat}, ce_chunk {cfg.ce_chunk}), capacity factor "
+          f"{cfg.capacity_factor}; adamw lr 1e-3 warmup 10, bf16 moments; "
+          f"init on the card {time.perf_counter() - t:.1f} s")
+    print(f"reduced: {cfg.name} {full.n_layers} -> {cfg.n_layers} layers "
+          f"({rk['n'] / 1e9:.3f}B parameters, "
+          f"{2 * rk['n'] / 1e9:.2f} GB in bf16; two layers hold "
+          f"{(rk['n'] + per_layer) / 1e9:.3f}B, more than one card takes "
+          f"with any AdamW state); "
+          f"train_4k's global batch {spec.global_batch} -> {b} (sequence "
+          f"{s} kept): one card, no gradient accumulation")
+    print(f"MoE train reckoning: widest leaf {rk['widest'] / 1e6:.0f}M "
+          f"parameters; float32 moments 16 bytes a parameter + 10 a "
+          f"parameter updated + 24 a widest-leaf element -> peak "
+          f"{rk['peak_f32'] / 1e9:.1f} GB (over the ~85 GB the allocator "
+          f"gets); bf16 moments 12 + 6 + 24 -> peak {rk['peak_bf16'] / 1e9:.1f}"
+          f" GB; predicted step {rk['ms']:.0f} ms ({rk['flops'] / 1e12:.1f} "
+          f"TFLOP of float32 expert products and CE logits at "
+          f"{MOE_TRAIN_F32_FLOPS / 1e12:.0f} TFLOP/s); {card}")
+    batches = [pytree.tree_map(lambda v: torch.as_tensor(v, device=dev), x)
+               for x in Prefetcher(lm_batches(cfg.vocab_size, b, s, seed=16,
+                                              n_batches=MOE_TRAIN_STEPS))]
+
+    # (b) step 1's per-token NLL against the float32 policy's, and (c) the
+    # MoE block's gradients against the float32 policy's: both before the
+    # moments are allocated (the float32 copy of the model is 11.6 GB)
+    check_policy_nll(params, batches[0], cfg, f"{cfg.name} step 1 batch")
+    torch.cuda.empty_cache()
+    check_moe_grads(params, batches[0], cfg)
+    torch.cuda.empty_cache()
+
+    # (a) every gradient leaf finite, each group non-zero, at the initial
+    # weights
+    loss0, grads = steps_mod.value_and_grad(
+        lambda p: T.lm_loss(p, batches[0], cfg), params)
+    lyr = grads["layers"]
+    groups = {"embed": grads["embed"]["emb"], "unembed": grads["unembed"]["w"],
+              "ln_f": grads["ln_f"]["scale"]}
+    for part, keys in (("attn", ("wq", "wk", "wv", "wo")),
+                       ("ln1", ("scale",)), ("ln2", ("scale",)),
+                       ("moe", ("router", "w_gate", "w_up", "w_down"))):
+        for k in keys:
+            groups[f"{part}.{k}"] = lyr[part][k]
+    check_grads(grads, groups, cfg.name)
+    del grads, lyr, groups
+    torch.cuda.empty_cache()
+
+    opt = opt_mod.adamw(lr=1e-3, warmup_steps=10, state_dtype=torch.bfloat16)
+    step = steps_mod.lm_train_step(cfg, opt)
+    # the one reference to the state: the loop rebinds it, so that a
+    # step's input state is freed once the next step has its output
+    state = steps_mod.make_state(params, opt)
+    del params
+    peaks, times = [], []
+    for i, batch in enumerate(batches):
+        aux, dropped, picks = moe_route_stats(state["params"], batch, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        times.append(ms)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        print(f"{cfg.name} train step {int(m['step'])}: {ms:.1f} ms, "
+              f"{b * s / ms * 1e3:.0f} tokens/s, loss {loss:.6f}"
+              + (f" (the gradient check's {float(loss0):.6f})" if i == 0
+                 else "")
+              + f", aux loss {aux:.6f}, grad norm {gnorm:.6f}, picks dropped "
+              f"{dropped} of {picks}, peak memory {peaks[-1]:.2f} GB")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"{cfg.name}: non-finite loss or grad norm")
+    print(f"{cfg.name} train: batch {b} x {s}, {min(times):.1f} ms a step at "
+          f"best ({b * s / min(times) * 1e3:.0f} tokens/s), peak memory "
+          f"{max(peaks):.2f} GB; predicted {rk['ms']:.0f} ms and "
+          f"{rk['peak_bf16'] / 1e9:.1f} GB; {card}")
+    if profile:
+        profile_train_step(step, state, batches[-1], cfg.name)
+
+    # (d) one step twice from the same state: the new parameters' and
+    # moments' digest, each result hashed and freed before the next; the
+    # control moves one parameter by one ulp
+    def digest(st):
+        new, _ = step(st, batches[0])
+        out = state_digest({"params": new["params"], "mu": new["opt"]["mu"],
+                            "nu": new["opt"]["nu"]})
+        del new
+        return out
+
+    t = time.perf_counter()
+    runs = [digest(state), digest(state)]
+    scale = state["params"]["ln_f"]["scale"].clone()
+    scale[0] = torch.nextafter(scale[0], torch.full_like(scale[0], math.inf))
+    moved = dict(state, params=dict(state["params"],
+                                    ln_f={"scale": scale}))
+    ctl = digest(moved)
+    print(f"{cfg.name} one step twice from one state (step "
+          f"{int(state['step']) + 1}): the new parameters' and moments' "
+          f"digest (state_digest) {runs[0]} / {runs[1]} "
+          f"({'bit-equal' if runs[0] == runs[1] else 'NOT bit-equal'}); "
+          f"the control with ln_f.scale[0] one ulp up {ctl} "
+          f"({'differs' if ctl != runs[0] else 'EQUAL'}); "
+          f"{time.perf_counter() - t:.1f} s for the three steps and digests")
+    check(runs[0] == runs[1], f"{cfg.name}: one step twice from one state "
+          f"differs")
+    check(ctl != runs[0], f"{cfg.name}: the moved-parameter control gave "
+          f"the same digest")
+    del state, moved, scale, batches
+    torch.cuda.empty_cache()
+    launched = _build.launch_counts()
+    print(f"MoE train launches: {launched}")
+    check(not launched, "the MoE train path launched a kernel, which has "
+          "no backward")
+    return launched
+
+
+def check_moe_grads(params, batch, cfg) -> None:
+    """(c) Layer 0's ``moe_block`` on ``MOE_GRAD_TOKENS`` of the batch's
+    tokens (its input: the first sequence's embeddings through layer 0's
+    attention half), bf16 against the float32 policy on the widened
+    weights and input: the gradients of ``sum(out * cot)`` with respect to
+    x, the router and the three expert stacks, as relative Frobenius
+    errors within ``MOE_GRAD_RTOL``.  At a capacity factor with no drops,
+    on the tokens both policies route to the same experts; the control is
+    the bf16 gradients under another seeded cotangent."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    n, keys = MOE_GRAD_TOKENS, ("router", "w_gate", "w_up", "w_down")
+    lp = T._layer_params(params, 0)
+    with torch.no_grad():
+        tokens = batch["tokens"][:1, :n]
+        x = L.embedding(params["embed"], tokens, cfg.policy)
+        pos = torch.arange(n, device=tokens.device)
+        q, k, v = T._qkv(lp, x, cfg, pos)
+        att = T.attention(q, k, v, cfg, causal=True, window=cfg.window)
+        xa = x + L.dense({"w": lp["attn"]["wo"]},
+                         att.reshape(1, n, cfg.n_heads * cfg.d_head),
+                         cfg.policy)
+        h2 = L.rmsnorm(lp["ln2"], xa, cfg.norm_eps).reshape(n, cfg.d_model)
+    nd = dataclasses.replace(cfg, capacity_factor=float(
+        cfg.n_experts // cfg.moe_top_k))
+    nd32 = dataclasses.replace(nd, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+    moe32 = {k: lp["moe"][k].float() for k in keys}
+    routes: list = []
+    with torch.no_grad():
+        T.moe_block(lp["moe"], h2, nd, routes)
+        T.moe_block(moe32, h2.float(), nd32, routes)
+    same = (routes[0].expert_ids.sort(1).values
+            == routes[1].expert_ids.sort(1).values).all(1)
+    x16 = h2[same]
+    gen = torch.Generator(device=h2.device).manual_seed(161)
+    cot, cot2 = (torch.randn((x16.shape[0], cfg.d_model), generator=gen,
+                             device=h2.device) for _ in range(2))
+
+    def grads(p, x, c, ct):
+        leaves = {k: p[k].detach().requires_grad_() for k in keys}
+        xx = x.detach().requires_grad_()
+        out, _ = T.moe_block(leaves, xx, c)
+        return torch.autograd.grad((out.float() * ct).sum(),
+                                   [xx] + [leaves[k] for k in keys])
+
+    g32 = grads(moe32, x16.float(), nd32, cot)
+    del moe32
+    g16 = grads(lp["moe"], x16, nd, cot)
+    names = ("x",) + keys
+    errs = [float((a.float() - r).norm() / r.norm()) for a, r in zip(g16, g32)]
+    del g16
+    g16c = grads(lp["moe"], x16, nd, cot2)
+    ctls = [float((a.float() - r).norm() / r.norm())
+            for a, r in zip(g16c, g32)]
+    del g16c, g32
+    print(f"{cfg.name} layer-0 MoE block gradients, bf16 against the float32 "
+          f"policy ({int(same.sum())} of {n} tokens routed alike, capacity "
+          f"factor {nd.capacity_factor}, no drops): |g16 - g32| / |g32| "
+          + ", ".join(f"{k} {e:.4g}" for k, e in zip(names, errs))
+          + f" (limit {MOE_GRAD_RTOL:.4g}); the control under another "
+          f"cotangent " + ", ".join(f"{k} {e:.4g}" for k, e in
+                                   zip(names, ctls)))
+    check(int(same.sum()) >= n // 2, f"{cfg.name}: only {int(same.sum())} "
+          f"of {n} tokens routed alike under bf16 and float32")
+    check(max(errs) <= MOE_GRAD_RTOL, f"{cfg.name}: MoE gradients {errs} "
+          f"from the float32 policy's")
+    check(min(ctls) > MOE_GRAD_RTOL, f"{cfg.name}: the cotangent control "
+          f"passed the MoE gradient check: {ctls}")
+
+
+# --------------------------------------------------------------------------
+# phase 17: the cls_384 and train_1024 training shapes, unet-sdxl's whole
+# gen_1024 sample
+# --------------------------------------------------------------------------
+
+# train_1024's batch of 32 is halved, per arch, until the reckoned
+# train-step peak stays under DIFF_1024_PEAK_GB: in the backward, 12 bytes
+# a parameter (bf16 parameters and gradients, float32 moments) and, a
+# sample, DIFF_SCORE_BUFFERS float32 tensors the size of the largest
+# attention call's scores (``diffusion_score_bytes``: flux's (24, 4608,
+# 4608) are 2.04 GB a sample a block, the UNet's at its 64² level 0.67 GB
+# a sample a call), which lead the activations at 128² latents.  Six
+# such buffers live at once in that call's backward (the scores, their
+# scaled copy, the probabilities, the gradients of the three); on an
+# NVIDIA H100 80GB HBM3 at 700.00 W flux at batch 4 peaked at 67.04 GB
+# (5.4 a sample over the 12 bytes) and the UNet at batch 13 ran out of
+# memory.  A measure from one- and two-sample gradients was tried first
+# and read 3.19 GB a sample for the UNet, 8.47 and 3.27 in two runs for
+# flux: too low and not stable.  DIFF_FRAGMENTATION_GB of the line is
+# kept for the caching allocator's blocks that a step cannot use after
+# the script's earlier phases: in the whole script flux at batch 4
+# (reckoned 71.9 GB) ran out of memory at its second step with 29.5 GB
+# reserved and unallocated, where alone it had run; the UNet at 8
+# (reckoned 63.2 GB) ran in both.  The update's peak (26 bytes a
+# parameter) must stay under the line too
+DIFF_1024_PEAK_GB, DIFF_FRAGMENTATION_GB = 75.0, 10.0
+DIFF_SCORE_BUFFERS = 6
+DIFF_1024_STEPS = 2
+# unet-sdxl's gen_1024 sample, whole: its latents after DIFF_GEN1024_STEPS
+# steps must be phase 11's digest, which read 12ca0e5efbb88f6c in all of
+# its chip runs so far (seed 71: phase 11's unet-sdxl seed)
+UNET_GEN1024_SEED = 71
+UNET_GEN1024_DIGEST = "12ca0e5efbb88f6c"
+
+
+def run_train_shapes() -> dict:
+    """Phase 17; returns the launches of its three paths (none: their
+    attention is the plain one, their convolutions cuDNN's)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    launched = {}
+    for path, run in (("vision_train_384", train_vision_384),
+                      ("diffusion_train_1024", train_diffusion_1024),
+                      ("diffusion_gen_1024", sample_unet_1024)):
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        run()
+        launched[path] = _build.launch_counts()
+        print(f"{path}: {time.perf_counter() - t:.1f}s")
+    torch.cuda.empty_cache()
+    print(f"train shapes launches: {launched}")
+    check(not any(launched.values()), "a path of phase 17 launched a kernel")
+    return launched
+
+
+def train_vision_384() -> None:
+    """Each vision arch at ``cls_384`` (64 x 384², bf16, remat; ViT-B/16
+    through ``config_for_res(384)``, its 577-token position table):
+    the gradients at the initial weights, ``VISION_TRAIN_STEPS``
+    ``vision_train_step``s, then the bf16 logits against the float32
+    policy's at 384."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch.configs import vit_b16
+    from repro_torch.configs.base import VISION_SHAPES
+    from repro_torch.models import vision as V
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    spec = VISION_SHAPES["cls_384"]
+    b, res = spec.batch, spec.img_res
+    dev = torch.device("cuda")
+    for i, arch in enumerate(VISION_ARCHS):
+        mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        cfg = vit_b16.config_for_res(res) if mod is vit_b16 else \
+            dataclasses.replace(mod.full_config(), img_res=res)
+        seed = 170 + i
+        params = V.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batches = [{"images": torch.randn((b, res, res, 3), generator=gen,
+                                          device=dev),
+                    "labels": torch.randint(0, cfg.n_classes, (b,),
+                                            generator=gen, device=dev,
+                                            dtype=torch.int32)}
+                   for _ in range(VISION_TRAIN_STEPS)]
+        print(f"vision train: {cfg.name}, bf16, remat={cfg.remat}, batch {b} "
+              f"x {res}² (cls_384), adamw lr 1e-3 warmup 10")
+        check_vision_grads(cfg, params, batches[0])
+        opt = opt_mod.adamw(lr=1e-3, warmup_steps=10)
+        step = steps_mod.vision_train_step(cfg, opt)
+        state = vision_train_steps(
+            cfg, step, [steps_mod.make_state(params, opt)], batches)
+        del state, batches
+        torch.cuda.empty_cache()
+        check_vision_policy(cfg, params, seed, weights_control=True)
+        del params
+        torch.cuda.empty_cache()
+
+
+def train_diffusion_1024() -> None:
+    """unet-sdxl and flux-dev (on ``FLUX_TRAIN_BLOCKS``) at
+    ``train_1024`` (128² latents), the batch halved as
+    ``DIFF_1024_PEAK_GB`` reckons it: the gradients at the initial
+    weights, then ``DIFF_1024_STEPS`` ``diffusion_train_step``s."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.configs.base import DIFFUSION_SHAPES
+    from repro_torch.models import diffusion as D
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    spec = DIFFUSION_SHAPES["train_1024"]
+    dev = torch.device("cuda")
+    for i, arch in enumerate(("unet_sdxl", "flux_dev")):
+        mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        cfg = mod.full_config()
+        is_flux = isinstance(cfg, D.MMDiTConfig)
+        if is_flux:
+            nd, ns = FLUX_TRAIN_BLOCKS
+            cfg = dataclasses.replace(cfg, n_double_blocks=nd,
+                                      n_single_blocks=ns)
+        seed = 175 + i
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = D.init_params(gen, cfg, device=dev)
+        if is_flux:
+            params = D.perturb_modulation(params, gen)
+        n = sum(p.numel() for p in pytree.leaves(params))
+        res = spec.img_res // mod.VAE_FACTOR
+
+        limit = DIFF_1024_PEAK_GB * 1e9
+        act = DIFF_SCORE_BUFFERS * diffusion_score_bytes(cfg, res)
+        b = spec.batch
+        while b > 1 and 12 * n + b * act + DIFF_FRAGMENTATION_GB * 1e9 \
+                > limit:
+            b //= 2
+        cut = (f"{cfg.n_double_blocks} double and {cfg.n_single_blocks} "
+               f"single blocks, " if is_flux else "")
+        print(f"diffusion train: {cfg.name} ({cut}{n / 1e9:.3f}B parameters, "
+              f"bf16, remat={cfg.remat}) at train_1024 ({res}² latents), "
+              f"adamw lr 1e-3 warmup 10")
+        print(f"reduced: {cfg.name} train_1024's batch {spec.batch} -> {b}: "
+              f"{DIFF_SCORE_BUFFERS} float32 score tensors of "
+              f"{act / DIFF_SCORE_BUFFERS / 1e9:.2f} GB a sample, 12 bytes a "
+              f"parameter {12 * n / 1e9:.1f} GB -> reckoned peak "
+              f"{(12 * n + b * act) / 1e9:.1f} GB (the update, 26 bytes a "
+              f"parameter: {26 * n / 1e9:.1f} GB), under {DIFF_1024_PEAK_GB} "
+              f"GB less {DIFF_FRAGMENTATION_GB} GB for the allocator's "
+              f"fragmentation")
+        check(26 * n <= limit, f"{cfg.name}: the update alone passes "
+              f"{DIFF_1024_PEAK_GB} GB")
+        g = torch.Generator(device=dev).manual_seed(seed)
+        batches = [{**diffusion_inputs(cfg, b, res, seed + j),
+                    "seed": torch.randint(0, 2 ** 31, (), generator=g,
+                                          device=dev)}
+                   for j in range(DIFF_1024_STEPS)]
+        check_diffusion_grads(cfg, params, batches[0])
+        opt = opt_mod.adamw(lr=1e-3, warmup_steps=10)
+        step = steps_mod.diffusion_train_step(cfg, opt)
+        held = [steps_mod.make_state(params, opt)]
+        del params
+        state = diffusion_train_steps(cfg, step, held, batches)
+        del state, batches
+        torch.cuda.empty_cache()
+
+
+def diffusion_score_bytes(cfg, res: int) -> int:
+    """The bytes of one sample's largest float32 attention scores at
+    ``res``² latents: flux's joint attention over the image patches and
+    the context tokens, or the UNet's self-attention at its finest level
+    with attention (level 0 has none; each level halves the resolution)."""
+    from repro_torch.models import diffusion as D
+
+    if isinstance(cfg, D.MMDiTConfig):
+        tokens = (res // cfg.patch) ** 2 + cfg.n_ctx_tokens
+        return 4 * cfg.n_heads * tokens ** 2
+    return max(4 * (cfg.ch * m // cfg.head_dim) * (res >> li) ** 4
+               for li, m in enumerate(cfg.ch_mult) if li > 0)
+
+
+def sample_unet_1024() -> None:
+    """unet-sdxl's ``gen_1024`` sample whole: 4 x 128² latents, all 50
+    DDIM steps of ``diffusion_denoise_step`` from phase 11's weights and
+    inputs (seed ``UNET_GEN1024_SEED``), after its warm-up step.  The
+    latents after ``DIFF_GEN1024_STEPS`` steps must be phase 11's digest;
+    the control, the digest a step later, must differ."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import unet_sdxl
+    from repro_torch.configs.base import DIFFUSION_SHAPES
+    from repro_torch.models import diffusion as D
+    from repro_torch.training import steps as steps_mod
+
+    cfg = unet_sdxl.full_config()
+    spec = DIFFUSION_SHAPES["gen_1024"]
+    res = spec.img_res // unet_sdxl.VAE_FACTOR
+    dev = torch.device("cuda")
+    params = D.init_params(
+        torch.Generator(device=dev).manual_seed(UNET_GEN1024_SEED), cfg,
+        device=dev)
+    step = steps_mod.diffusion_denoise_step(cfg)
+    inputs = diffusion_inputs(cfg, spec.batch, res, UNET_GEN1024_SEED)
+    t0 = 999.0
+    dt = t0 / spec.steps
+    sample(step, params, cfg, inputs, t0, dt, 1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    x, times, digests = inputs["latents"], [], {}
+    for i in range(spec.steps):
+        batch = denoise_batch(cfg, inputs, x, t0 - i * dt, dt)
+        t = time.perf_counter()
+        x = step(params, batch)["latents"]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if i + 1 in (DIFF_GEN1024_STEPS, DIFF_GEN1024_STEPS + 1,
+                     spec.steps):
+            digests[i + 1] = hashlib.sha256(
+                x.cpu().numpy().tobytes()).hexdigest()[:16]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(x.dtype == torch.float32 and bool(torch.isfinite(x).all()),
+          f"{cfg.name} gen_1024: latents {x.dtype}, not all finite")
+    ms = sum(times) / len(times)
+    want = SERVE_DIGESTS.get((cfg.name, "gen_1024"), UNET_GEN1024_DIGEST)
+    two, three = digests[DIFF_GEN1024_STEPS], digests[DIFF_GEN1024_STEPS + 1]
+    print(f"{cfg.name} gen_1024 ({spec.batch} x {res}² latents, whole "
+          f"sample): {spec.steps} steps, {ms:.1f} ms a step (min "
+          f"{min(times):.1f}, max {max(times):.1f}), "
+          f"{sum(times) / 1e3:.2f} s a sample, "
+          f"{spec.batch / sum(times) * 1e3:.3f} samples/s, peak memory "
+          f"{peak:.2f} GB, latents sha256 {digests[spec.steps]}; "
+          f"{card_line()}")
+    print(f"{cfg.name} gen_1024 after {DIFF_GEN1024_STEPS} steps: sha256 "
+          f"{two} against phase 11's {want} "
+          f"({'equal' if two == want else 'DIFFERS'}); the control after "
+          f"{DIFF_GEN1024_STEPS + 1} steps {three} "
+          f"({'differs' if three != want else 'EQUAL'})")
+    check(two == want, f"{cfg.name} gen_1024: {two} after "
+          f"{DIFF_GEN1024_STEPS} steps, phase 11's {want}")
+    check(three != want, f"{cfg.name} gen_1024: the 3-step control has "
+          f"the 2-step digest")
+    del params, inputs, x
+
+
 def main() -> int:
     import torch
 
@@ -4597,6 +5304,13 @@ def main() -> int:
     t = time.perf_counter()
     by_path["lm_granite"] = run_granite_path()
     print(f"phase 15: {time.perf_counter() - t:.1f}s; {card}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    by_path["moe_train"] = run_moe_train(profile=profile)
+    print(f"phase 16: {time.perf_counter() - t:.1f}s; {card}")
+    t = time.perf_counter()
+    by_path.update(run_train_shapes())
+    print(f"phase 17: {time.perf_counter() - t:.1f}s; {card}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -9,13 +9,30 @@ int32 tensor, the reference's layout.  ``update`` is functional: it
 returns new tensors and changes none it was given.  Run it under
 ``torch.no_grad()``.
 
-The arithmetic is the reference's, operation for operation, in float32
-(``state_dtype``).  Two places keep PyTorch from rounding otherwise: a
-quotient by a number is taken against a tensor on the operands' device
-(PyTorch multiplies a tensor by the reciprocal of a Python scalar
-divisor, one rounding more), and a bf16 gradient times the float32 clip
-scale is promoted to float32, as JAX promotes it (PyTorch would keep a
-0-d tensor's product in bf16).
+The arithmetic is the reference's, operation for operation, with JAX's
+type rules where PyTorch's differ:
+
+* a Python float (``b1``, ``1 - b1``, ``lr``, ``momentum``,
+  ``weight_decay``) is weakly typed in JAX: it takes the dtype of the
+  tensor it meets, so against a bf16 moment or parameter it is rounded to
+  bf16 first (0.9 becomes 0.8984375).  PyTorch keeps a Python scalar at
+  float32 precision; :func:`_weak` makes it a 0-d tensor of the other
+  operand's dtype, which PyTorch then rounds alike;
+* a 0-d float32 array (``bc1``, ``bc2``, ``lr_t``) is strongly typed in
+  JAX and promotes a bf16 operand to float32; PyTorch keeps a 0-d
+  tensor's result in the other operand's dtype, so the bf16 moment is
+  widened first (``mu_n.float() / bc1``);
+* a bf16 gradient times the float32 clip scale is promoted to float32,
+  as JAX promotes it;
+* a quotient by a number is taken against a tensor on the operands'
+  device (PyTorch multiplies a tensor by the reciprocal of a Python
+  scalar divisor, one rounding more);
+* the square root is rounded to nearest, as XLA's and the card's are
+  (:func:`_sqrt`: ATen's CPU kernel takes MKL's vector square root from
+  128 elements on, which is within an ulp but not always the nearest).
+
+On float32 trees the first two rules change nothing.  The moments stay in
+``state_dtype`` and the new parameter is cast to the parameter's dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch import pytree
@@ -41,6 +59,22 @@ class Optimizer:
 def _tree_zeros(params, dtype=None):
     return pytree.tree_map(
         lambda p: torch.zeros_like(p, dtype=dtype or p.dtype), params)
+
+
+def _weak(x: float, like: torch.Tensor) -> torch.Tensor:
+    """The Python float ``x`` as JAX's weak type enters an operation with
+    ``like``: a 0-d tensor of ``like``'s dtype on its device."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The square root of each element, rounded to nearest: numpy's for a
+    plain CPU tensor, ``torch.sqrt`` elsewhere (the card rounds to
+    nearest; a fake tensor, as the launch layer's counter runs the step
+    on, has no values)."""
+    if x.device.type == "cpu" and type(x) is torch.Tensor:
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
 
 
 def _step0(params) -> torch.Tensor:
@@ -71,16 +105,17 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
         bc2 = 1.0 - b2 ** stepf
 
         def upd(g, p, mu, nu):
-            g32 = g.to(state_dtype)
-            mu_n = b1 * mu + (1 - b1) * g32
-            nu_n = b2 * nu + (1 - b2) * (g32 * g32)
-            mhat = mu_n / bc1
-            vhat = nu_n / bc2
-            delta = mhat / (torch.sqrt(vhat) + eps)
+            g32, ps = g.to(state_dtype), p.to(state_dtype)
+            mu_n = _weak(b1, mu) * mu + _weak(1 - b1, g32) * g32
+            nu_n = _weak(b2, nu) * nu + _weak(1 - b2, g32) * (g32 * g32)
+            # bc1, bc2 and lr_t are float32 0-d arrays in the reference:
+            # they widen a bf16 moment, and so delta, to float32
+            mhat = mu_n.float() / bc1
+            vhat = nu_n.float() / bc2
+            delta = mhat / (_sqrt(vhat) + eps)
             if weight_decay:
-                delta = delta + weight_decay * p.to(state_dtype)
-            return ((p.to(state_dtype) - lr_t * delta).to(p.dtype), mu_n,
-                    nu_n)
+                delta = delta + _weak(weight_decay, ps) * ps
+            return (ps - lr_t * delta).to(p.dtype), mu_n, nu_n
 
         flat_g, treedef = pytree.flatten(grads)
         out = [upd(*a) for a in zip(flat_g, treedef.flatten_up_to(params),
@@ -101,9 +136,9 @@ def sgd(lr: float = 0.1, momentum: float = 0.9,
 
     def update(grads, params, state):
         def upd(g, p, v):
-            g = g + weight_decay * p if weight_decay else g
-            v_n = momentum * v + g
-            return (p - lr * v_n).to(p.dtype), v_n
+            g = g + _weak(weight_decay, p) * p if weight_decay else g
+            v_n = _weak(momentum, v) * v + g
+            return (p - _weak(lr, v_n) * v_n).to(p.dtype), v_n
 
         flat_g, treedef = pytree.flatten(grads)
         out = [upd(*a) for a in zip(flat_g, treedef.flatten_up_to(params),

@@ -1001,6 +1001,79 @@ def test_cuda_moe_train_step_bf16_matches_cpu(cuda):
     assert int(state["step"]) == 1 and np.isfinite(float(m["loss"]))
 
 
+def _wide_tree(seed, dtype, device):
+    """A 64x128 matrix and a 128 vector from a numpy seed, in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    return {"a": {"w": torch.from_numpy(rng.standard_normal(
+                      (64, 128)).astype(np.float32)).to(device, dtype),
+                  "b": torch.from_numpy(rng.standard_normal(
+                      128).astype(np.float32)).to(device, dtype)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [
+    ("adamw", torch.bfloat16), ("adamw", torch.float32),
+    ("sgd", torch.bfloat16)])
+def test_cuda_bf16_optimizer_update_matches_cpu(cuda, name, dtype):
+    """AdamW with bf16 moments (over bf16 and float32 parameters) and SGD
+    on bf16 parameters: 12 updates on the card against the same updates
+    on the CPU, bit for bit.  Both round each operation alike: bf16
+    products and sums (float32 arithmetic rounded once), IEEE float32
+    quotients, and square roots rounded to nearest (the optimizer's own
+    on the CPU, ``sqrtf`` on the card)."""
+    opt = (topt.adamw(lr=0.05, weight_decay=0.1, warmup_steps=3,
+                      state_dtype=torch.bfloat16) if name == "adamw"
+           else topt.sgd(lr=0.05, momentum=0.9, weight_decay=0.01))
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = _wide_tree(0, dtype, dev)
+        state = opt.init(params)
+        with torch.no_grad():
+            for i in range(12):
+                params, state = opt.update(_wide_tree(100 + i, dtype, dev),
+                                           params, state)
+        runs[str(dev)] = (params, state)
+    (hp, hs), (cp, cs) = runs["cpu"], runs[str(cuda)]
+    for h, c in zip(pytree.leaves((hp, hs)), pytree.leaves((cp, cs))):
+        assert c.is_cuda and c.dtype == h.dtype
+        assert torch.equal(c.cpu(), h)
+    assert int(cs["step"]) == 12
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_step_bf16_moments_matches_cpu(cuda):
+    """One ``lm_train_step`` of mixtral's smoke config in bf16 with
+    ``adamw(state_dtype=bfloat16)``, as the card trains mixtral-8x22b,
+    against the CPU's, within the bf16 MoE step's tolerances above: loss
+    and grad norm rtol 2^-6; each moment leaf's cosine with the CPU's at
+    least 0.99 (the step-1 moments are the rounded gradient and its
+    square); every parameter within 2 lr of the CPU's (one AdamW step)."""
+    cfg = dataclasses.replace(tmixtral.smoke_config(),
+                              param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    params = tlm.init_params(torch.Generator().manual_seed(3), cfg,
+                             device="cpu")
+    batch = next(lm_batches(cfg.vocab_size, 4, 48, seed=2))
+    lr = 1e-3
+    opt = topt.adamw(lr=lr, warmup_steps=2, state_dtype=torch.bfloat16)
+    step = tsteps.lm_train_step(cfg, opt)
+    (hm,), hstate = _two_steps(step, params, opt, [batch], "cpu")
+    (cm,), cstate = _two_steps(step, params, opt, [batch], cuda)
+    for k in ("loss", "grad_norm"):
+        assert cm[k] == pytest.approx(hm[k], rel=2.0 ** -6)
+    for k in ("mu", "nu"):
+        for h, c in zip(pytree.leaves(hstate["opt"][k]),
+                        pytree.leaves(cstate["opt"][k])):
+            assert c.is_cuda and c.dtype == torch.bfloat16
+            cos = torch.nn.functional.cosine_similarity(
+                h.float().ravel(), c.cpu().float().ravel(), dim=0)
+            assert float(cos) >= 0.99
+    for h, c in zip(pytree.leaves(hstate["params"]),
+                    pytree.leaves(cstate["params"])):
+        assert c.dtype == torch.bfloat16
+        assert float((c.cpu().float() - h.float()).abs().max()) <= 2 * lr
+
+
 @pytest.mark.cuda
 def test_cuda_detector_train_step_matches_cpu(cuda, fp32):
     cfg = tdet.PAPER_LADDER[0]  # yolo-tiny-416

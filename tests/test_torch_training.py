@@ -29,6 +29,28 @@ Tolerances:
   reference's update run op by op (under ``jax.jit`` XLA contracts a
   multiply-add into one FMA, one rounding fewer); the global norm rtol
   1e-6 (a sum in another order) and the clipped leaves rtol 2e-6.
+* AdamW with bf16 moments and SGD on bf16 parameters: bit for bit
+  against the reference's eager update, over 12 steps.  Against
+  ``jax.jit(update)`` the moments stay bit for bit, and each parameter
+  within ``n 2^-7 (|p| + n lr)`` after n steps (:data:`BF16_JIT_ULPS`):
+  XLA's fused update can round delta's float32 arithmetic otherwise (one
+  rounding fewer, as above), an ulp that a bf16 rounding of the parameter (its dtype's, or the bf16
+  state's ``p.astype(bfloat16)``) can carry into one bf16 ulp of it,
+  2^-7 of its magnitude at most, once a step; a parameter's magnitude
+  stays within ``|p| + n lr`` of its end value (each step moves it by
+  about lr at most).  On the CPU the 12 steps read up to 1.15 such
+  ulps, a tenth of the limit.
+* The LM train steps with bf16 moments against the reference's jitted
+  step: the loss and grad norm as above (rtol 1e-5); the parameters
+  within 2 lr a step, and 99.9% of them within 1e-3 lr plus a bf16 ulp
+  of the parameter a step (the bf16 state rounds each float32 parameter
+  to bf16 before it steps, and a float32 difference can move that
+  rounding to the neighbouring bf16 value); each moment within ``n
+  (atol + 2^-7 |m|)`` after n steps, atol the float32 moments' (1e-6 for
+  mu, 1e-7 for nu): a float32 gradient difference as for float32
+  moments, plus one bf16 neighbour a step, the older differences shrunk
+  by b1 or b2.  The reference's own eager step lies as far from its
+  jitted one (on the CPU both read up to 2.8 of the n = 3 allowed).
 """
 
 from __future__ import annotations
@@ -264,6 +286,46 @@ def test_three_lm_train_steps_match_reference(name):
                         rtol=0)
 
 
+@pytest.mark.parametrize("jit", [True, False], ids=["jit", "eager"])
+def test_three_moe_train_steps_with_bf16_moments_match_reference(jit):
+    """mixtral's smoke config with ``adamw(state_dtype=bfloat16)``, as the
+    card trains mixtral-8x22b, against the reference's step (jitted, and
+    op by op), within the module docstring's bf16-moment tolerances."""
+    jcfg = jmixtral.smoke_config()
+    lr, n = 1e-3, 3
+    kw = dict(lr=lr, warmup_steps=2, weight_decay=0.01)
+    jopt = JO.adamw(state_dtype=jnp.bfloat16, **kw)
+    topt = TO.adamw(state_dtype=torch.bfloat16, **kw)
+    jp, tcfg, tp = _lm_pair(jcfg)
+    jstate, tstate = JS.make_state(jp, jopt), TS.make_state(tp, topt)
+    jstep = JS.lm_train_step(jcfg, jopt)
+    jstep = jax.jit(jstep) if jit else jstep
+    tstep = TS.lm_train_step(tcfg, topt)
+    for i in range(n):
+        batch = _lm_batch(jcfg.vocab_size, s=24, seed=10 + i)
+        jstate, jm = jstep(jstate, _jax(batch))
+        tstate, tm = tstep(tstate, _torch(batch))
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5)
+    assert int(tstate["step"]) == n
+    diff = np.concatenate([
+        np.abs(_np(g) - np.asarray(r)).ravel() / (
+            1e-3 * lr + n * 2.0 ** -7 * np.abs(np.asarray(r)).ravel())
+        for g, r in zip(pytree.leaves(tstate["params"]),
+                        jax.tree.leaves(jstate["params"]))])
+    assert np.quantile(diff, 0.999) <= 1.0
+    for g, r in zip(pytree.leaves(tstate["params"]),
+                    jax.tree.leaves(jstate["params"])):
+        assert np.abs(_np(g) - np.asarray(r)).max() <= 2 * lr * n
+    for k, atol in (("mu", 1e-6), ("nu", 1e-7)):
+        for g, r in zip(pytree.leaves(tstate["opt"][k]),
+                        jax.tree.leaves(jstate["opt"][k])):
+            assert g.dtype == torch.bfloat16
+            g, r = _np(g), np.asarray(r.astype(jnp.float32))
+            bound = n * (atol + 2.0 ** -7 * np.maximum(np.abs(g), np.abs(r)))
+            assert (np.abs(g - r) <= bound).all()
+
+
 def test_train_step_leaves_its_inputs_unchanged():
     cfg = TT.from_jax_config(jsmol.smoke_config())
     opt = TO.adamw(lr=1e-2)
@@ -322,16 +384,27 @@ def _opt_trees(seed=0):
         is_leaf=lambda x: isinstance(x, tuple))
 
 
-def _run_opts(jopt, topt, n=12):
-    params = _opt_trees(0)
-    jp = jax.tree.map(jnp.asarray, params)
-    tp = pytree.tree_map(torch.from_numpy, params)
+def _run_opts(jopt, topt, n=12, trees=_opt_trees, dtype="float32",
+              jit=False):
+    """n updates of both optimizers from the same parameters on the same
+    gradients, both in ``dtype`` (numpy float32 trees rounded once, the
+    same bf16 values on both sides)."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def both(tree):
+        j = jax.tree.map(lambda x: jnp.asarray(x).astype(jdt), tree)
+        return j, pytree.tree_map(
+            lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))
+                                       ).to(tdt), j)
+
+    jp, tp = both(trees(0))
     js, ts = jopt.init(jp), topt.init(tp)
+    jupdate = jax.jit(jopt.update) if jit else jopt.update
     for i in range(n):
-        g = _opt_trees(100 + i)
-        jp, js = jopt.update(jax.tree.map(jnp.asarray, g), jp, js)
+        jg, tg = both(trees(100 + i))
+        jp, js = jupdate(jg, jp, js)
         with torch.no_grad():
-            tp, ts = topt.update(pytree.tree_map(torch.from_numpy, g), tp, ts)
+            tp, ts = topt.update(tg, tp, ts)
     return (jp, js), (tp, ts)
 
 
@@ -354,6 +427,147 @@ def test_sgd_matches_reference_on_identical_gradients():
     _assert_trees_close(tp, jp, atol=0, rtol=0)
     _assert_trees_close(ts["vel"], js["vel"], atol=0, rtol=0)
     assert int(ts["step"]) == int(js["step"]) == 12
+
+
+def _wide_trees(seed=0):
+    """A 64x128 matrix and a 128 vector: past ATen's 128-element switch
+    to MKL's vector square root (not rounded to nearest) on the CPU."""
+    rng = np.random.default_rng(seed)
+    return {"a": {"w": rng.standard_normal((64, 128)).astype(np.float32),
+                  "b": rng.standard_normal((128,)).astype(np.float32)}}
+
+
+# each bf16 parameter against jax.jit(update): n 2^-7 (|p| + n lr) after
+# n steps (the module's docstring)
+BF16_JIT_ULPS = 2.0 ** -7
+ADAMW_KW = [dict(lr=0.1), dict(lr=0.1, warmup_steps=5),
+            dict(lr=0.05, weight_decay=0.1, warmup_steps=3)]
+ADAMW_IDS = ["plain", "warmup", "decay"]
+SGD_KW = [dict(lr=0.05, momentum=0.9, weight_decay=0.01),
+          dict(lr=0.1, momentum=0.9)]
+
+
+def _assert_bf16_jit_close(got, ref, lr: float, n: int) -> None:
+    for g, r in zip(pytree.leaves(got), jax.tree.leaves(ref)):
+        r = np.asarray(r.astype(jnp.float32))
+        tol = n * BF16_JIT_ULPS * (np.abs(r) + n * lr)
+        assert (np.abs(_np(g) - r) <= tol).all()
+
+
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+@pytest.mark.parametrize("param_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kw", ADAMW_KW, ids=ADAMW_IDS)
+def test_adamw_bf16_state_matches_reference(kw, param_dtype, jit):
+    """bf16 moments over bf16 and float32 parameters: the weak Python
+    constants and the float32 0-d arrays' promotion, as JAX types them."""
+    (jp, js), (tp, ts) = _run_opts(
+        JO.adamw(state_dtype=jnp.bfloat16, **kw),
+        TO.adamw(state_dtype=torch.bfloat16, **kw), trees=_wide_trees,
+        dtype=param_dtype, jit=jit)
+    for k in ("mu", "nu"):
+        assert all(t.dtype == torch.bfloat16 for t in pytree.leaves(ts[k]))
+        _assert_trees_close(ts[k], js[k], atol=0, rtol=0)
+    assert all(t.dtype == getattr(torch, param_dtype)
+               for t in pytree.leaves(tp))
+    if jit:
+        _assert_bf16_jit_close(tp, jp, kw["lr"], 12)
+    else:
+        _assert_trees_close(tp, jp, atol=0, rtol=0)
+    assert int(ts["step"]) == int(js["step"]) == 12
+
+
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+@pytest.mark.parametrize("kw", SGD_KW, ids=["momentum_decay", "momentum"])
+def test_sgd_bf16_params_match_reference(kw, jit):
+    (jp, js), (tp, ts) = _run_opts(JO.sgd(**kw), TO.sgd(**kw),
+                                   trees=_wide_trees, dtype="bfloat16",
+                                   jit=jit)
+    assert all(t.dtype == torch.bfloat16 for t in pytree.leaves(tp))
+    _assert_trees_close(ts["vel"], js["vel"], atol=0, rtol=0)
+    if jit:
+        _assert_bf16_jit_close(tp, jp, kw["lr"], 12)
+    else:
+        _assert_trees_close(tp, jp, atol=0, rtol=0)
+
+
+def _pre_repair_adamw(lr, b1=0.9, b2=0.95, eps=1e-8):
+    """AdamW's update as the port computed it before it followed JAX's
+    type rules: Python-float constants kept at float32 precision against
+    a bf16 moment, and the bf16 moments' quotients by the float32 0-d
+    bias corrections kept in bf16."""
+    def init(params):
+        return {"mu": pytree.tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.bfloat16), params),
+                "nu": pytree.tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.bfloat16), params),
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    def update(grads, params, state):
+        step = state["step"] + 1
+        stepf = step.to(torch.float32)
+        lr_t = lr * torch.ones_like(stepf)
+        bc1, bc2 = 1.0 - b1 ** stepf, 1.0 - b2 ** stepf
+
+        def upd(g, p, mu, nu):
+            g16 = g.to(torch.bfloat16)
+            mu_n = b1 * mu + (1 - b1) * g16
+            nu_n = b2 * nu + (1 - b2) * (g16 * g16)
+            delta = (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + eps)
+            return (p.to(torch.bfloat16) - lr_t * delta).to(p.dtype), mu_n, \
+                nu_n
+
+        out = [upd(*a) for a in zip(pytree.leaves(grads),
+                                    pytree.leaves(params),
+                                    pytree.leaves(state["mu"]),
+                                    pytree.leaves(state["nu"]))]
+        treedef = pytree.flatten(params)[1]
+        return (treedef.unflatten([o[0] for o in out]),
+                {"mu": treedef.unflatten([o[1] for o in out]),
+                 "nu": treedef.unflatten([o[2] for o in out]),
+                 "step": step})
+
+    return TO.Optimizer(init, update)
+
+
+def _pre_repair_sgd(lr, momentum):
+    def init(params):
+        return {"vel": pytree.tree_map(torch.zeros_like, params),
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    def update(grads, params, state):
+        treedef = pytree.flatten(params)[1]
+        out = [(p - lr * (momentum * v + g), momentum * v + g)
+               for g, p, v in zip(pytree.leaves(grads), pytree.leaves(params),
+                                  pytree.leaves(state["vel"]))]
+        return (treedef.unflatten([o[0].to(torch.bfloat16) for o in out]),
+                {"vel": treedef.unflatten([o[1] for o in out]),
+                 "step": state["step"] + 1})
+
+    return TO.Optimizer(init, update)
+
+
+@pytest.mark.parametrize("opt", ["adamw", "sgd"])
+def test_pre_repair_arithmetic_differs_from_reference(opt):
+    """The control of the bf16 parity tests: the arithmetic without JAX's
+    type rules, on the same trees, leaves the reference's eager update in
+    at least one element of the parameters (and, for AdamW, the
+    moments)."""
+    if opt == "adamw":
+        jopt = JO.adamw(lr=0.1, state_dtype=jnp.bfloat16)
+        topt, keys = _pre_repair_adamw(lr=0.1), ("mu", "nu")
+    else:
+        jopt, topt, keys = JO.sgd(lr=0.1, momentum=0.9), \
+            _pre_repair_sgd(lr=0.1, momentum=0.9), ("vel",)
+    (jp, js), (tp, ts) = _run_opts(jopt, topt, trees=_wide_trees,
+                                   dtype="bfloat16")
+
+    def n_differ(got, ref):
+        return sum(int((_np(g) != np.asarray(r.astype(jnp.float32))).sum())
+                   for g, r in zip(pytree.leaves(got), jax.tree.leaves(ref)))
+
+    assert n_differ(tp, jp) > 0
+    if opt == "adamw":
+        assert all(n_differ(ts[k], js[k]) > 0 for k in keys)
 
 
 @pytest.mark.parametrize("max_norm", [1.0, 0.3, 1e3])
