@@ -288,8 +288,9 @@ Phases, in order; any failure exits non-zero:
    bf16, ``chunked`` attention, remat, ``ce_chunk`` 256), ``reduced`` to
    ``MOE_TRAIN_LAYERS`` of its 56 layers and ``train_4k``'s global batch
    to ``MOE_TRAIN_BATCH`` x 4096: the update's reckoned peak with float32
-   and with bf16 moments and the predicted step time are printed
-   (``moe_train_reckoning``), then ``MOE_TRAIN_STEPS`` ``lm_train_step``s
+   and with bf16 moments, whole-tree and leaf by leaf (``update_peaks``),
+   and the predicted step time are printed (``moe_train_reckoning``),
+   then ``MOE_TRAIN_STEPS`` ``lm_train_step``s
    of ``adamw(lr=1e-3, warmup_steps=10, state_dtype=bfloat16)`` on
    ``lm_batches`` through ``Prefetcher``: ms a step, tokens/s, loss, aux
    loss, grad norm, picks dropped and peak memory.  Checks, each with a
@@ -315,7 +316,29 @@ Phases, in order; any failure exits non-zero:
    ``DIFF_GEN1024_STEPS`` steps equal to phase 11's and the one a step
    later not.  Launch counts are set to 0 before each of the three paths
    and read after (``vision_train_384``, ``diffusion_train_1024``,
-   ``diffusion_gen_1024``).
+   ``diffusion_gen_1024``);
+18. the launch layer's 33 cells that phase 12 leaves (``CELL_PLAN``),
+   each whole where it fits one card, else at the cut beside it, built
+   by the launch layer's own cell constructors (``_phase12_cell``: an LM's
+   ``n_layers``, flux's double and single blocks, any family's batch)
+   and printed as ``reduced``; a train cell whose AdamW update is
+   reckoned past ``CELL_UPDATE_SHARE`` of the card prints its ``why``
+   instead (``cell_why``), and the table's 3 skipped cells are named.
+   Each cell prints phase 12's lines (FLOPs fake = real, held at a
+   shallower depth where the run's fake counts would take more than ~3
+   s, ``model_flops / FLOPs``, ms a step beside the card bound and the
+   eager-traffic bound) and its peak memory; a decode cell decodes each
+   step at ``cache_len = S - 1``.  Checks: outputs finite, fake = real,
+   and the control (``control_cut``: one layer fewer for an LM, one
+   double block fewer for flux, one batch element fewer for vision and
+   the UNet, one more at a batch of 1) counting other FLOPs.  2 timed
+   steps after the counted warm-up, 1 where the first took over 5 s.
+   Launch
+   counts are set to 0 before the phase and read after (``cells_plan``);
+19. qwen3-moe's training, as phase 16 trains mixtral-8x22b: 1 of its 94
+   layers at published width (3.732B parameters, 1.245B of them the
+   embeddings), 2 x 4096, bf16 moments, the same checks and controls
+   (``moe_train_qwen3``).
 
 ``--flash-only`` stops after the flash kernels' checks and times (phase 3
 for attention alone), for comparing versions of the kernels; it prints no
@@ -340,7 +363,8 @@ phase 9, the vision serve and train paths of phase 10, the diffusion
 serve and train paths of phase 11, the cells of phase 12, the
 multi-device path of phase 13, all seven 0 on one card, the serving
 policies and the fleet of phase 14, granite of phase 15, and the MoE
-training of phase 16 and the three paths of phase 17, all four 0),
+training of phase 16, the three paths of phase 17, the cells of phase
+18 and qwen3-moe's training of phase 19, all seven 0),
 the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
@@ -3467,20 +3491,220 @@ PEAK_FLOPS_BY_DTYPE = {"bfloat16": PEAK_BF16_TC_FLOPS,
 
 
 def _phase12_cell(arch_id: str, shape_name: str, batch: int | None = None,
-                  seq_len: int | None = None):
-    """The launch layer's cell, or an LM cell at a cut batch or length."""
+                  seq_len: int | None = None, **config):
+    """The launch layer's cell, or the cell built by its own constructor from
+    a cut: ``batch`` (an LM shape's ``global_batch``, a vision or
+    diffusion shape's ``batch``), ``seq_len`` (an LM shape's), and any
+    field of the arch's published config (``n_layers``, flux's
+    ``n_double_blocks`` and ``n_single_blocks``, a ResNet's or a
+    ConvNeXt's ``depths``, the UNet's ``transformer_depth``), so that the
+    step, the specs and ``model_flops`` are the cut cell's."""
     import dataclasses
 
     from repro_torch.configs import base as cfgbase
     from repro_torch.launch import cells as cells_mod
 
-    if batch is None and seq_len is None:
+    if batch is None and seq_len is None and not config:
         return cells_mod.build_cell(arch_id, shape_name)
-    shape = cfgbase.get_arch(arch_id).shapes[shape_name]
-    shape = dataclasses.replace(shape,
-                                global_batch=batch or shape.global_batch,
-                                seq_len=seq_len or shape.seq_len)
-    return cells_mod._lm_cell(cfgbase.get_arch(arch_id), shape)
+    arch = cfgbase.get_arch(arch_id)
+    arch = dataclasses.replace(
+        arch, config=dataclasses.replace(arch.config, **config))
+    shape = arch.shapes[shape_name]
+    if arch.family == "lm":
+        shape = dataclasses.replace(
+            shape, global_batch=shape.global_batch if batch is None
+            else batch, seq_len=seq_len or shape.seq_len)
+        return cells_mod._lm_cell(arch, shape)
+    check(seq_len is None, f"{arch_id}/{shape_name}: no sequence to cut")
+    shape = dataclasses.replace(
+        shape, batch=shape.batch if batch is None else batch)
+    build = (cells_mod._vision_cell if arch.family == "vision"
+             else cells_mod._diffusion_cell)
+    return build(arch, shape)
+
+
+def _cut_text(cut: dict) -> str:
+    return ", ".join(f"{v} tokens" if k == "seq_len" else f"{k} {v}"
+                     for k, v in cut.items())
+
+
+def published(arch_id: str, shape_name: str, field: str):
+    """A cut field's published value: the shape's batch or sequence, or
+    the config's field."""
+    from repro_torch.configs import base as cfgbase
+
+    arch = cfgbase.get_arch(arch_id)
+    shape = arch.shapes[shape_name]
+    if field == "batch":
+        return shape.global_batch if arch.family == "lm" else shape.batch
+    if field == "seq_len":
+        return shape.seq_len
+    return getattr(arch.config, field)
+
+
+def control_cut(arch_id: str, shape_name: str, cut: dict) -> dict:
+    """The control of a count at ``cut``: one layer fewer (an LM), one
+    double block fewer (flux), one batch element fewer (vision and the
+    UNet; one more at a batch of 1)."""
+    from repro_torch.configs import base as cfgbase
+
+    arch = cfgbase.get_arch(arch_id)
+    if arch.family == "lm":
+        field = "n_layers"
+    elif arch_id == "flux_dev":
+        field = "n_double_blocks"
+    else:
+        field = "batch"
+    value = cut.get(field, published(arch_id, shape_name, field))
+    return {**cut, field: 2 if field == "batch" and value == 1
+            else value - 1}
+
+
+def run_cell(arch_id: str, shape_name: str, cut: dict,
+             held_cut: dict | None, seed: int, card: str,
+             timed_steps: int | None = CELL_TIMED_STEPS,
+             extra_checks: bool = False) -> None:
+    """One cell of the launch layer on the card: built at ``cut``
+    (:func:`_phase12_cell`), its fake-tensor count held equal to its real
+    one (at ``cut`` plus ``held_cut`` where given: the full cell is then
+    counted on real tensors alone), then timed over ``timed_steps`` steps
+    after the counted warm-up (None: 2, or 1 where the first step took
+    over 5 s).  ``extra_checks`` (phase 18) also
+    prints each cut as ``reduced``, runs a decode cell at ``cache_len =
+    S - 1``, holds the count at the control's cut (:func:`control_cut`)
+    to another count, and prints the peak memory."""
+    import torch
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import cells as cells_mod
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hloanalysis import analyze, tensor_bytes
+
+    dev = torch.device("cuda")
+    cell = _phase12_cell(arch_id, shape_name, **cut)
+    what = f"{arch_id}/{shape_name}"
+    if cut:
+        what += " (reduced: " + ", ".join(
+            f"{k} {published(arch_id, shape_name, k)} -> {v}"
+            for k, v in cut.items()) + ")"
+    if extra_checks:
+        for k, v in cut.items():
+            print(f"reduced: {arch_id}/{shape_name} {k} "
+                  f"{published(arch_id, shape_name, k)} -> {v}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    held = cell if held_cut is None else _phase12_cell(
+        arch_id, shape_name, **{**cut, **held_cut})
+    s_dec = cfgbase.get_arch(arch_id).shapes[shape_name].seq_len
+    at_end = extra_checks and cell.kind == "decode"
+
+    drawn = []
+
+    def materialize(c):
+        t = time.perf_counter()
+        first, data = cells_mod.materialize(c, device=dev, seed=seed)
+        if at_end:  # the step advances the length in place
+            data["cache_len"].fill_(s_dec - 1)
+        torch.cuda.synchronize()
+        drawn.append(time.perf_counter() - t)
+        return first, data
+
+    t = time.perf_counter()
+    fake = dryrun.count_cell(held, dev)
+    t_fake = time.perf_counter() - t
+    first, data = materialize(held)
+    t = time.perf_counter()
+    real = analyze(held.step, first, data)
+    torch.cuda.synchronize()
+    t_real = time.perf_counter() - t
+    at = "" if held_cut is None else f" at {_cut_text(held_cut)}"
+    check(fake["flops"] == real["flops"] > 0
+          and fake["flops_by_dtype"] == real["flops_by_dtype"],
+          f"{what}{at}: fake-tensor FLOPs {fake['flops']:.6e} "
+          f"{fake['flops_by_dtype']} != real {real['flops']:.6e} "
+          f"{real['flops_by_dtype']}")
+    print(f"cell {what}: {cell.kind}, FLOPs{at} {fake['flops']:.6e} fake "
+          f"= {real['flops']:.6e} real (counted in {t_fake:.1f} s and "
+          f"{t_real:.1f} s), bytes {fake['hbm_bytes']:.6e} fake / "
+          f"{real['hbm_bytes']:.6e} real, {fake['n_ops']} ops")
+    if extra_checks:
+        ctl_cut = control_cut(arch_id, shape_name, {**cut,
+                                                    **(held_cut or {})})
+        t = time.perf_counter()
+        ctl = dryrun.count_cell(_phase12_cell(arch_id, shape_name,
+                                              **ctl_cut), dev)
+        print(f"cell {what}: the control at {_cut_text(ctl_cut)} counts "
+              f"{ctl['flops']:.6e} FLOPs fake ("
+              f"{'differs' if ctl['flops'] != fake['flops'] else 'EQUAL'}; "
+              f"{time.perf_counter() - t:.1f} s)")
+        check(ctl["flops"] != fake["flops"], f"{what}: the control at "
+              f"{_cut_text(ctl_cut)} counts the cell's FLOPs")
+        if at_end:
+            print(f"cell {what}: each step decodes at cache_len "
+                  f"{s_dec - 1} (S - 1; a cache of "
+                  f"{data['cache_k'].shape[2]} slots)")
+    if held is not cell:  # the full cell, counted on real tensors
+        del first, data
+        first, data = materialize(cell)
+        t = time.perf_counter()
+        real = analyze(cell.step, first, data)
+        torch.cuda.synchronize()
+        t_real = time.perf_counter() - t
+        print(f"cell {what}: FLOPs {real['flops']:.6e} real (counted in "
+              f"{t_real:.1f} s), bytes {real['hbm_bytes']:.6e}, "
+              f"{real['n_ops']} ops")
+    print(f"cell {what}: model_flops / FLOPs "
+          f"{cell.model_flops / real['flops']:.4f}, FLOPs by operand "
+          f"dtype {real['flops_by_dtype']}")
+    arg_bytes = sum(tensor_bytes(x) for x in _leaves((first, data))
+                    if isinstance(x, torch.Tensor))
+    times = [t_real * 1e3]  # the counted run is the warm-up
+    while len(times) <= (timed_steps or 1):
+        if at_end:
+            data["cache_len"].fill_(s_dec - 1)
+        t = time.perf_counter()
+        out = cell.step(first, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if cell.kind == "train":
+            first = out[0]
+        if timed_steps is None:  # by the first step's time
+            timed_steps = 1 if times[1] > 5e3 else 2
+    check(all(bool(torch.isfinite(x).all()) for x in _leaves(out)
+              if isinstance(x, torch.Tensor) and x.is_floating_point()),
+          f"{what}: non-finite output")
+    out_bytes = sum(tensor_bytes(x) for x in _leaves(out)
+                    if isinstance(x, torch.Tensor))
+    ms = sum(times[1:]) / timed_steps
+    # the card's bound: each product at its dtype's peak, and the least
+    # traffic (the arguments read once, the outputs written once: the
+    # parameters, the batch, a train cell's state both ways)
+    compute_ms = sum(n / PEAK_FLOPS_BY_DTYPE[d]
+                     for d, n in real["flops_by_dtype"].items()) * 1e3
+    least_ms = (arg_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    card_ms = max(compute_ms, least_ms)
+    card_by = "compute" if compute_ms >= least_ms else "least traffic"
+    # the eager-traffic bound: every dispatched op's operands and
+    # results through HBM, all products at the bf16 peak
+    eager_ms, by = bound_ms(real["hbm_bytes"], real["flops"],
+                            PEAK_BF16_TC_FLOPS)
+    print(f"cell {what}: {' / '.join(f'{x:.1f}' for x in times[1:])} "
+          f"ms a step (the counted warm-up {times[0]:.1f}), {ms:.1f} ms "
+          f"mean, {real['flops'] / ms / 1e9:.1f} TFLOP/s; card bound "
+          f"{card_ms:.3f} ms ({card_by}: "
+          f"products at their dtype's peak {compute_ms:.3f} ms, "
+          f"arguments + outputs {arg_bytes + out_bytes:.4e} B "
+          f"{least_ms:.3f} ms), {card_ms / ms:.1%} of it reached; "
+          f"eager-traffic bound {eager_ms:.3f} ms ({by}: FLOPs / "
+          f"989e12, counted bytes / 3.35e12), {eager_ms / ms:.1%} of it "
+          f"reached; {card}")
+    if extra_checks:
+        print(f"cell {what}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (arguments "
+              f"{arg_bytes / 1e9:.2f} GB, drawn in "
+              f"{' + '.join(f'{x:.1f}' for x in drawn)} s); {card}")
+    del first, data, out, cell, held
+    torch.cuda.empty_cache()
 
 
 def run_cells_path() -> dict:
@@ -3488,98 +3712,18 @@ def run_cells_path() -> dict:
     launch a kernel: every cell's attention is plain or ``chunked``)."""
     import torch
 
-    from repro_torch.configs import base as cfgbase
     from repro_torch.kernels import _build
-    from repro_torch.launch import cells as cells_mod
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.hloanalysis import analyze, tensor_bytes
 
     card = card_line()
     torch.cuda.empty_cache()
     _build.reset_launch_counts()
-    dev = torch.device("cuda")
     print(f"cells: {len(CELL_RUNS)} cells of the launch layer, counted on "
           f"fake CUDA tensors and on real seeded ones, then timed")
     for i, (arch_id, shape_name, batch, check_len) in enumerate(CELL_RUNS):
-        cell = _phase12_cell(arch_id, shape_name, batch)
-        what = f"{arch_id}/{shape_name}"
-        if batch is not None:
-            full = cfgbase.get_arch(arch_id).shapes[shape_name].global_batch
-            what += f" (reduced: batch {full} -> {batch})"
-        held = cell if check_len is None else _phase12_cell(
-            arch_id, shape_name, batch, check_len)
-        t = time.perf_counter()
-        fake = dryrun.count_cell(held, dev)
-        t_fake = time.perf_counter() - t
-        first, data = cells_mod.materialize(held, device=dev, seed=90 + i)
-        t = time.perf_counter()
-        real = analyze(held.step, first, data)
-        torch.cuda.synchronize()
-        t_real = time.perf_counter() - t
-        at = "" if check_len is None else f" at {check_len} tokens"
-        check(fake["flops"] == real["flops"] > 0
-              and fake["flops_by_dtype"] == real["flops_by_dtype"],
-              f"{what}{at}: fake-tensor FLOPs {fake['flops']:.6e} "
-              f"{fake['flops_by_dtype']} != real {real['flops']:.6e} "
-              f"{real['flops_by_dtype']}")
-        print(f"cell {what}: {cell.kind}, FLOPs{at} {fake['flops']:.6e} fake "
-              f"= {real['flops']:.6e} real (counted in {t_fake:.1f} s and "
-              f"{t_real:.1f} s), bytes {fake['hbm_bytes']:.6e} fake / "
-              f"{real['hbm_bytes']:.6e} real, {fake['n_ops']} ops")
-        if held is not cell:  # the full cell, counted on real tensors
-            del first, data
-            first, data = cells_mod.materialize(cell, device=dev,
-                                                seed=90 + i)
-            t = time.perf_counter()
-            real = analyze(cell.step, first, data)
-            torch.cuda.synchronize()
-            t_real = time.perf_counter() - t
-            print(f"cell {what}: FLOPs {real['flops']:.6e} real (counted in "
-                  f"{t_real:.1f} s), bytes {real['hbm_bytes']:.6e}, "
-                  f"{real['n_ops']} ops")
-        print(f"cell {what}: model_flops / FLOPs "
-              f"{cell.model_flops / real['flops']:.4f}, FLOPs by operand "
-              f"dtype {real['flops_by_dtype']}")
-        arg_bytes = sum(tensor_bytes(x) for x in _leaves((first, data))
-                        if isinstance(x, torch.Tensor))
-        times = [t_real * 1e3]  # the counted run is the warm-up
-        for _ in range(CELL_TIMED_STEPS):
-            t = time.perf_counter()
-            out = cell.step(first, data)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            if cell.kind == "train":
-                first = out[0]
-        check(all(bool(torch.isfinite(x).all()) for x in _leaves(out)
-                  if isinstance(x, torch.Tensor) and x.is_floating_point()),
-              f"{what}: non-finite output")
-        out_bytes = sum(tensor_bytes(x) for x in _leaves(out)
-                        if isinstance(x, torch.Tensor))
-        ms = sum(times[1:]) / CELL_TIMED_STEPS
-        # the card's bound: each product at its dtype's peak, and the least
-        # traffic (the arguments read once, the outputs written once: the
-        # parameters, the batch, a train cell's state both ways)
-        compute_ms = sum(n / PEAK_FLOPS_BY_DTYPE[d]
-                         for d, n in real["flops_by_dtype"].items()) * 1e3
-        least_ms = (arg_bytes + out_bytes) / PEAK_BYTES_S * 1e3
-        card_ms = max(compute_ms, least_ms)
-        card_by = "compute" if compute_ms >= least_ms else "least traffic"
-        # the eager-traffic bound: every dispatched op's operands and
-        # results through HBM, all products at the bf16 peak
-        eager_ms, by = bound_ms(real["hbm_bytes"], real["flops"],
-                                PEAK_BF16_TC_FLOPS)
-        print(f"cell {what}: {' / '.join(f'{x:.1f}' for x in times[1:])} "
-              f"ms a step (the counted warm-up {times[0]:.1f}), {ms:.1f} ms "
-              f"mean, {real['flops'] / ms / 1e9:.1f} TFLOP/s; card bound "
-              f"{card_ms:.3f} ms ({card_by}: "
-              f"products at their dtype's peak {compute_ms:.3f} ms, "
-              f"arguments + outputs {arg_bytes + out_bytes:.4e} B "
-              f"{least_ms:.3f} ms), {card_ms / ms:.1%} of it reached; "
-              f"eager-traffic bound {eager_ms:.3f} ms ({by}: FLOPs / "
-              f"989e12, counted bytes / 3.35e12), {eager_ms / ms:.1%} of it "
-              f"reached; {card}")
-        del first, data, out, cell, held
-        torch.cuda.empty_cache()
+        run_cell(arch_id, shape_name,
+                 {} if batch is None else {"batch": batch},
+                 None if check_len is None else {"seq_len": check_len},
+                 90 + i, card)
     launched = _build.launch_counts()
     print(f"cells launches: {launched}")
     check(not launched, "a cell's step launched a kernel")
@@ -4665,37 +4809,72 @@ MOE_GRAD_TOKENS = 512
 MOE_GRAD_RTOL = 8 * 2.0 ** -8
 
 
+# bytes a slice element of the leaf update's temporaries, at most: the
+# clipped float32 gradient (4) and up to 8 float32 values of AdamW's upd
+# alive at once (the new moments and parameter among them: 32), rounded
+# up (an NVIDIA H100 80GB HBM3 at 700.00 W read 36.0 on a 2 GiB float32
+# leaf)
+LEAF_SLICE_BYTES = 40
+
+
+def _slice_elems(shape) -> int:
+    """The elements of the largest slice the leaf update takes of a leaf
+    of ``shape`` (``optimizer._leaf_update``: runs of whole rows of the
+    first dimension whose rows fit in ``SLICE_ELEMS``)."""
+    from repro_torch.training import optimizer as opt_mod
+
+    n = math.prod(shape)
+    if n <= opt_mod.SLICE_ELEMS:
+        return n
+    dim = next(d for d in range(len(shape))
+               if math.prod(shape[d + 1:]) <= opt_mod.SLICE_ELEMS)
+    row = math.prod(shape[dim + 1:])
+    return min(shape[dim], opt_mod.SLICE_ELEMS // row) * row
+
+
+def update_peaks(shapes, moment_bytes: int, param_bytes: int = 2
+                 ) -> tuple[float, float]:
+    """The AdamW update's reckoned peak (bytes) over leaves of ``shapes``
+    (``jax.tree.flatten`` order): (the whole-tree composition the train
+    steps used before, ``clip_by_global_norm`` then ``update``: the
+    caller's state, the gradients that ``_train_step`` kept alive, their
+    float32 clipped copies, the new state of the leaves done and ~24
+    bytes an element of the leaf in hand; the leaf update,
+    ``clip_and_update``: the caller's state, the gradients of the leaves
+    not yet done, the new state of the leaves done and of the leaf in
+    hand, and ``LEAF_SLICE_BYTES`` an element of its largest slice)."""
+    sizes = [math.prod(sh) for sh in shapes]
+    n = sum(sizes)
+    per = param_bytes + 2 * moment_bytes  # a parameter's state
+    whole = leaf = done = 0
+    for sh, k in zip(shapes, sizes):
+        whole = max(whole, per * n + (param_bytes + 4) * n + per * done
+                    + 24 * k)
+        leaf = max(leaf, per * n + param_bytes * (n - done)
+                   + per * (done + k) + LEAF_SLICE_BYTES * _slice_elems(sh))
+        done += k
+    return whole, leaf
+
+
 def moe_train_reckoning(params, cfg, b: int, s: int) -> dict:
-    """The train step's predicted peak memory (bytes) with float32 and
-    with bf16 AdamW moments, and its predicted ms.  The peak is in the
-    update: the caller's state (bf16 parameters, the two moments), the
-    bf16 gradients that ``_train_step`` keeps alive, their float32
-    clipped copies, the new parameters and moments of the leaves done so
-    far (``jax.tree.flatten`` order), and ~24 bytes an element of the
-    leaf in hand (``upd``'s float32 temporaries)."""
+    """The train step's predicted update peaks (bytes, :func:`update_peaks`)
+    with float32 and with bf16 AdamW moments, and its predicted ms."""
     from repro_torch import pytree
     from repro_torch.models import transformer as T
 
-    leaves = pytree.leaves(params)
-    n = sum(t.numel() for t in leaves)
-
-    def peak(moment_bytes: int) -> float:
-        base = (2 + 2 + 2 * moment_bytes + 4) * n
-        done, best = 0, 0
-        for t in leaves:
-            best = max(best, base + (2 + 2 * moment_bytes) * done
-                       + 24 * t.numel())
-            done += t.numel()
-        return best
-
+    shapes = [tuple(t.shape) for t in pytree.leaves(params)]
+    whole_f32, leaf_f32 = update_peaks(shapes, 4)
+    whole_bf16, leaf_bf16 = update_peaks(shapes, 2)
     # float32 FLOPs a step: each expert product and the CE's logits run
     # four times (forward, remat's forward, two backward products)
     cap = T.moe_capacity(cfg, b * s)
     expert = 3 * 2 * cfg.n_experts * cap * cfg.d_model * cfg.d_ff_expert
     ce = 2 * b * s * cfg.d_model * cfg.vocab_size
     flops = 4 * (expert * cfg.n_layers + ce)
-    return {"n": n, "widest": max(t.numel() for t in leaves),
-            "peak_f32": peak(4), "peak_bf16": peak(2), "flops": flops,
+    return {"n": sum(math.prod(sh) for sh in shapes),
+            "widest": max(math.prod(sh) for sh in shapes),
+            "peak_f32": whole_f32, "peak_bf16": whole_bf16,
+            "leaf_f32": leaf_f32, "leaf_bf16": leaf_bf16, "flops": flops,
             "ms": flops / MOE_TRAIN_F32_FLOPS * 1e3}
 
 
@@ -4747,15 +4926,18 @@ def moe_route_stats(params, batch, cfg) -> tuple[float, int, int]:
             sum(r.keep.numel() for r in routes))
 
 
-def run_moe_train(profile: bool = False) -> dict:
-    """Phase 16; returns the launches of the MoE train path (none: its
-    attention is ``chunked``, and ``flash_attention`` has no backward)."""
+def run_moe_train(profile: bool = False, arch: str = "mixtral_8x22b",
+                  seed: int = 160) -> dict:
+    """Phase 16 (mixtral-8x22b) and phase 19 (qwen3-moe): ``arch``'s
+    MoE training, its weights from ``seed``, its batches from ``seed //
+    10``; returns the launches of the MoE train path (none: its attention
+    is ``chunked``, and ``flash_attention`` has no backward)."""
     import dataclasses
+    import importlib
 
     import torch
 
     from repro_torch import pytree
-    from repro_torch.configs import mixtral_8x22b
     from repro_torch.configs.base import LM_SHAPES
     from repro_torch.data.pipeline import Prefetcher, lm_batches
     from repro_torch.kernels import _build
@@ -4766,17 +4948,25 @@ def run_moe_train(profile: bool = False) -> dict:
     torch.cuda.empty_cache()
     _build.reset_launch_counts()
     card = card_line()
-    full = mixtral_8x22b.full_config()
+    full = importlib.import_module(
+        f"repro_torch.configs.{arch}").full_config()
     cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
     spec = LM_SHAPES["train_4k"]
     b, s = MOE_TRAIN_BATCH, spec.seq_len
     dev = torch.device("cuda")
     t = time.perf_counter()
-    params = T.init_params(torch.Generator(device=dev).manual_seed(160), cfg,
-                           device=dev)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(seed),
+                           cfg, device=dev)
     torch.cuda.synchronize()
     rk = moe_train_reckoning(params, cfg, b, s)
     per_layer = sum(x.numel() for x in pytree.leaves(params["layers"]))
+    # two layers: every stacked layer leaf twice as deep
+    two_layers = update_peaks(
+        [tuple(x.shape) for k, v in params.items() if k != "layers"
+         for x in pytree.leaves(v)]
+        + [(2 * x.shape[0],) + tuple(x.shape[1:])
+           for x in pytree.leaves(params["layers"])], 2)[1]
+
     print(f"MoE train path: {cfg.name} at published width (d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.d_head}, {cfg.n_experts} experts top-{cfg.moe_top_k}, "
@@ -4788,28 +4978,32 @@ def run_moe_train(profile: bool = False) -> dict:
     print(f"reduced: {cfg.name} {full.n_layers} -> {cfg.n_layers} layers "
           f"({rk['n'] / 1e9:.3f}B parameters, "
           f"{2 * rk['n'] / 1e9:.2f} GB in bf16; two layers hold "
-          f"{(rk['n'] + per_layer) / 1e9:.3f}B, more than one card takes "
-          f"with any AdamW state); "
+          f"{(rk['n'] + per_layer) / 1e9:.3f}B, whose leaf update alone "
+          f"would peak at {two_layers / 1e9:.1f} GB with bf16 moments, "
+          f"beside the backward's activations); "
           f"train_4k's global batch {spec.global_batch} -> {b} (sequence "
           f"{s} kept): one card, no gradient accumulation")
     print(f"MoE train reckoning: widest leaf {rk['widest'] / 1e6:.0f}M "
-          f"parameters; float32 moments 16 bytes a parameter + 10 a "
-          f"parameter updated + 24 a widest-leaf element -> peak "
-          f"{rk['peak_f32'] / 1e9:.1f} GB (over the ~85 GB the allocator "
-          f"gets); bf16 moments 12 + 6 + 24 -> peak {rk['peak_bf16'] / 1e9:.1f}"
-          f" GB; predicted step {rk['ms']:.0f} ms ({rk['flops'] / 1e12:.1f} "
+          f"parameters; the whole-tree update (clip_by_global_norm then "
+          f"update, as the train steps composed it before the leaf update) "
+          f"would peak at {rk['peak_f32'] / 1e9:.1f} GB with float32 "
+          f"moments and {rk['peak_bf16'] / 1e9:.1f} GB with bf16 ones (the "
+          f"allocator gets ~85 GB); the leaf update (clip_and_update) at "
+          f"{rk['leaf_f32'] / 1e9:.1f} and {rk['leaf_bf16'] / 1e9:.1f} GB; "
+          f"predicted step {rk['ms']:.0f} ms ({rk['flops'] / 1e12:.1f} "
           f"TFLOP of float32 expert products and CE logits at "
           f"{MOE_TRAIN_F32_FLOPS / 1e12:.0f} TFLOP/s); {card}")
     batches = [pytree.tree_map(lambda v: torch.as_tensor(v, device=dev), x)
-               for x in Prefetcher(lm_batches(cfg.vocab_size, b, s, seed=16,
+               for x in Prefetcher(lm_batches(cfg.vocab_size, b, s,
+                                              seed=seed // 10,
                                               n_batches=MOE_TRAIN_STEPS))]
 
     # (b) step 1's per-token NLL against the float32 policy's, and (c) the
     # MoE block's gradients against the float32 policy's: both before the
-    # moments are allocated (the float32 copy of the model is 11.6 GB)
+    # moments are allocated (a float32 copy of the model, 4 bytes a parameter)
     check_policy_nll(params, batches[0], cfg, f"{cfg.name} step 1 batch")
     torch.cuda.empty_cache()
-    check_moe_grads(params, batches[0], cfg)
+    check_moe_grads(params, batches[0], cfg, seed + 1)
     torch.cuda.empty_cache()
 
     # (a) every gradient leaf finite, each group non-zero, at the initial
@@ -4856,8 +5050,9 @@ def run_moe_train(profile: bool = False) -> dict:
               f"{cfg.name}: non-finite loss or grad norm")
     print(f"{cfg.name} train: batch {b} x {s}, {min(times):.1f} ms a step at "
           f"best ({b * s / min(times) * 1e3:.0f} tokens/s), peak memory "
-          f"{max(peaks):.2f} GB; predicted {rk['ms']:.0f} ms and "
-          f"{rk['peak_bf16'] / 1e9:.1f} GB; {card}")
+          f"{max(peaks):.2f} GB; predicted {rk['ms']:.0f} ms; the update "
+          f"reckoned at {rk['leaf_bf16'] / 1e9:.1f} GB (the whole-tree "
+          f"update's {rk['peak_bf16'] / 1e9:.1f} GB); {card}")
     if profile:
         profile_train_step(step, state, batches[-1], cfg.name)
 
@@ -4898,7 +5093,7 @@ def run_moe_train(profile: bool = False) -> dict:
     return launched
 
 
-def check_moe_grads(params, batch, cfg) -> None:
+def check_moe_grads(params, batch, cfg, seed: int) -> None:
     """(c) Layer 0's ``moe_block`` on ``MOE_GRAD_TOKENS`` of the batch's
     tokens (its input: the first sequence's embeddings through layer 0's
     attention half), bf16 against the float32 policy on the widened
@@ -4938,7 +5133,7 @@ def check_moe_grads(params, batch, cfg) -> None:
     same = (routes[0].expert_ids.sort(1).values
             == routes[1].expert_ids.sort(1).values).all(1)
     x16 = h2[same]
-    gen = torch.Generator(device=h2.device).manual_seed(161)
+    gen = torch.Generator(device=h2.device).manual_seed(seed)
     cot, cot2 = (torch.randn((x16.shape[0], cfg.d_model), generator=gen,
                              device=h2.device) for _ in range(2))
 
@@ -5229,6 +5424,146 @@ def sample_unet_1024() -> None:
     del params, inputs, x
 
 
+# --------------------------------------------------------------------------
+# phase 18: the launch layer's cells that phase 12 leaves
+# --------------------------------------------------------------------------
+
+# (arch, shape, cut, held): each cell whole where it fits one card, else at
+# the cut (printed as reduced); a cell whose fake count and its control's
+# would take more than ~3 s together (~1 ms an op on fake tensors: the
+# phase's budget) holds both at ``held`` too (a shallower depth) and
+# counts the run's size on real tensors alone.  With phase 12's four
+# cells these are the reference table's 37 counted cells
+_UNET_LEVEL0 = {"ch_mult": (1,), "transformer_depth": (1,),
+                "n_res_blocks": 1}
+_FLUX_HELD = {"n_double_blocks": 2, "n_single_blocks": 2}
+CELL_PLAN = (
+    # vision: phases 10 and 17 run these steps at these shapes
+    ("vit_b16", "cls_224", {}, {"n_layers": 2}),
+    ("vit_b16", "cls_384", {}, {"n_layers": 2}),
+    ("vit_b16", "serve_b1", {}, None),
+    ("convnext_b", "cls_224", {}, {"depths": (1, 1, 3, 1)}),
+    ("convnext_b", "cls_384", {}, {"depths": (1, 1, 3, 1)}),
+    ("convnext_b", "serve_b1", {}, None),
+    ("convnext_b", "serve_b128", {}, None),
+    ("resnet_152", "cls_224", {}, {"depths": (1, 1, 2, 1)}),
+    ("resnet_152", "cls_384", {}, {"depths": (1, 1, 2, 1)}),
+    ("resnet_152", "serve_b1", {}, {"depths": (1, 1, 2, 1)}),
+    ("resnet_152", "serve_b128", {}, {"depths": (1, 1, 2, 1)}),
+    ("resnet_50", "cls_384", {}, {"depths": (1, 1, 2, 1)}),
+    ("resnet_50", "serve_b1", {}, None),
+    ("resnet_50", "serve_b128", {}, None),
+    # unet-sdxl: a train step's ~33k ops (the update's ~20 a leaf over 456
+    # leaves among them) hold their fake = real check at the first level
+    # (its res block, the mid block's transformer), at 128^2 latents on
+    # one sample (the mid block's scores at full resolution: 5.4 GB a
+    # sample).  For the phase's time the train batches are cut (phases
+    # 11 and 17 train the same step at 256 and 8): the count at the run's
+    # size is host-bound, the steps are not
+    ("unet_sdxl", "gen_1024", {}, {"transformer_depth": (1, 1, 1)}),
+    ("unet_sdxl", "train_256", {"batch": 64}, _UNET_LEVEL0),
+    ("unet_sdxl", "train_1024", {"batch": 4}, {**_UNET_LEVEL0, "batch": 1}),
+    # flux-dev: training (118.8 GB of state at 57 blocks) on 3 double + 6
+    # single blocks; for the phase's time every batch is halved (phases
+    # 11 and 17 run generation at 4 and 16, training at 64 and 2)
+    ("flux_dev", "gen_1024", {"batch": 2}, _FLUX_HELD),
+    ("flux_dev", "gen_fast", {"batch": 8}, _FLUX_HELD),
+    ("flux_dev", "train_256",
+     {"n_double_blocks": 3, "n_single_blocks": 6, "batch": 32}, _FLUX_HELD),
+    ("flux_dev", "train_1024",
+     {"n_double_blocks": 3, "n_single_blocks": 6, "batch": 2}, _FLUX_HELD),
+    # the LMs: train at 2 x 4096; prefill one 32k prompt; decode's batch
+    # of 128 cut to what the plain decode attention holds: it widens each
+    # layer's cache, its KV heads repeated to the query heads, to float32,
+    # ~12 bytes an element of (batch, cache slots, query heads, head dim)
+    # at once (smollm at 64: 14.5 GB beside its 48.3 GB cache ran out of
+    # memory; granite at 128 would take 412 GB)
+    ("smollm_135m", "train_4k", {"batch": 2}, {"n_layers": 2}),
+    ("smollm_135m", "decode_32k", {"batch": 32}, {"n_layers": 4}),
+    ("granite_34b", "train_4k", {"n_layers": 2, "batch": 2},
+     {"n_layers": 1}),
+    ("granite_34b", "prefill_32k", {"n_layers": 1, "batch": 1}, None),
+    ("granite_34b", "decode_32k", {"n_layers": 8, "batch": 16}, None),
+    ("mixtral_8x22b", "train_4k", {"n_layers": 1, "batch": 2}, None),
+    ("mixtral_8x22b", "prefill_32k", {"n_layers": 1, "batch": 1}, None),
+    ("mixtral_8x22b", "decode_32k", {"n_layers": 8, "batch": 32}, None),
+    ("mixtral_8x22b", "long_500k", {"n_layers": 8}, None),
+    ("qwen3_moe_235b_a22b", "prefill_32k", {"n_layers": 1, "batch": 1},
+     None),
+    ("qwen3_moe_235b_a22b", "decode_32k", {"n_layers": 2, "batch": 8},
+     None),
+    ("qwen3_moe_235b_a22b", "train_4k", {"n_layers": 1, "batch": 2}, None),
+)
+# the reference's table skips these (full attention at 524k tokens)
+CELL_SKIPS = (("granite_34b", "long_500k"), ("smollm_135m", "long_500k"),
+              ("qwen3_moe_235b_a22b", "long_500k"))
+# a train cell runs where its update's reckoned peak (the cells' AdamW,
+# float32 moments: update_peaks) stays under this share of the card: the
+# rest is the CUDA context, the batch and the allocator's fragmentation,
+# which late in this script has held 29.5 GB reserved and unallocated
+# (flux's train_1024 at batch 4, phase 17's first whole runs)
+CELL_UPDATE_SHARE = 0.9
+
+
+def cell_why(cell) -> str | None:
+    """Why ``cell`` cannot run on one card, or None: a train cell whose
+    leaf update's reckoned peak passes ``CELL_UPDATE_SHARE`` of the
+    card's memory."""
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.launch import cells as cells_mod
+
+    if cell.kind != "train":
+        return None
+    specs = pytree.flatten(cell.abstract_args[0]["params"],
+                           cells_mod._is_spec)[0]
+    whole, leaf = update_peaks([s.shape for s in specs], 4)
+    total = torch.cuda.get_device_properties(0).total_memory
+    if leaf <= CELL_UPDATE_SHARE * total:
+        return None
+    return (f"its AdamW update (float32 moments) over "
+            f"{sum(math.prod(s.shape) for s in specs) / 1e9:.3f}B "
+            f"parameters is reckoned at {leaf / 1e9:.1f} GB one leaf at a "
+            f"time ({whole / 1e9:.1f} GB whole-tree), past "
+            f"{CELL_UPDATE_SHARE:.0%} of the card's {total / 1e9:.1f} GB")
+
+
+def run_cells_plan() -> dict:
+    """Phase 18; returns the launches of the cells' steps (none may
+    launch a kernel, as in phase 12)."""
+    import torch
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    print(f"cells plan: {len(CELL_PLAN)} more cells of the launch layer "
+          f"(with phase 12's {len(CELL_RUNS)}, the table's "
+          f"{len(CELL_PLAN) + len(CELL_RUNS)} counted cells), each whole "
+          f"or cut, counted on fake CUDA tensors and on real seeded ones, "
+          f"held to a control, then timed")
+    for arch_id, shape_name in CELL_SKIPS:
+        print(f"cell {arch_id}/{shape_name}: skipped by the table "
+              f"({cfgbase.get_arch(arch_id).skip[shape_name]})")
+    for i, (arch_id, shape_name, cut, held) in enumerate(CELL_PLAN):
+        t = time.perf_counter()
+        why = cell_why(_phase12_cell(arch_id, shape_name, **cut))
+        if why is not None:
+            print(f"cell {arch_id}/{shape_name}: not run: {why}")
+            continue
+        run_cell(arch_id, shape_name, cut, held, 180 + i, card,
+                 timed_steps=None, extra_checks=True)
+        print(f"cell {arch_id}/{shape_name}: "
+              f"{time.perf_counter() - t:.1f} s in all")
+    launched = _build.launch_counts()
+    print(f"cells plan launches: {launched}")
+    check(not launched, "a cell's step launched a kernel")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -5311,6 +5646,13 @@ def main() -> int:
     t = time.perf_counter()
     by_path.update(run_train_shapes())
     print(f"phase 17: {time.perf_counter() - t:.1f}s; {card}")
+    t = time.perf_counter()
+    by_path["cells_plan"] = run_cells_plan()
+    print(f"phase 18: {time.perf_counter() - t:.1f}s; {card}")
+    t = time.perf_counter()
+    by_path["moe_train_qwen3"] = run_moe_train(
+        profile=profile, arch="qwen3_moe_235b_a22b", seed=190)
+    print(f"phase 19: {time.perf_counter() - t:.1f}s; {card}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

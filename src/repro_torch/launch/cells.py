@@ -415,7 +415,8 @@ def materialize(cell: Cell, fake_mode: FakeTensorMode | None = None,
     ``fake_mode`` (no memory, any size), or else real ones drawn from
     ``seed``: the parameters from the model's init, the optimizer's
     moments zero, an integer input in ``[0, high)``, a float input
-    uniform in [0, 1).  Host ints stay as they are."""
+    uniform in [0, 1), drawn in its own dtype (a decode cell's cache
+    takes no float32 copy).  Host ints stay as they are."""
     device = torch.device(device)
     if fake_mode is not None:
         with fake_mode:
@@ -429,8 +430,8 @@ def materialize(cell: Cell, fake_mode: FakeTensorMode | None = None,
         if not _is_spec(a):
             return a
         if a.dtype.is_floating_point:
-            return torch.rand(a.shape, generator=gen, device=device
-                              ).to(a.dtype)
+            return torch.empty(a.shape, dtype=a.dtype, device=device
+                               ).uniform_(generator=gen)
         return torch.randint(0, a.high, a.shape, generator=gen,
                              device=device, dtype=a.dtype)
 

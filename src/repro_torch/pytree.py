@@ -41,18 +41,7 @@ class TreeDef:
 
     def unflatten(self, leaves) -> Any:
         it = iter(leaves)
-
-        def build(n):
-            if n is _LEAF:
-                return next(it)
-            if n is None:
-                return None
-            if isinstance(n, dict):
-                return {k: build(v) for k, v in n.items()}
-            if isinstance(n, list):
-                return [build(v) for v in n]
-            return tuple(build(v) for v in n)
-        out = build(self._node)
+        out = _build(self._node, it)
         if next(it, _LEAF) is not _LEAF:
             raise ValueError("more leaves than the structure holds")
         return out
@@ -61,49 +50,73 @@ class TreeDef:
         """The subtrees of ``tree`` at this structure's leaves (a tree of
         the same structure gives its leaves)."""
         out: list = []
-
-        def walk(n, t):
-            if n is _LEAF:
-                out.append(t)
-            elif n is None:
-                if t is not None:
-                    raise ValueError(f"expected None, got {type(t).__name__}")
-            elif isinstance(n, dict):
-                if sorted(t) != list(n):
-                    raise ValueError(f"keys {sorted(t)} != {list(n)}")
-                for k, v in n.items():
-                    walk(v, t[k])
-            else:
-                if len(t) != len(n):
-                    raise ValueError(f"{len(t)} children != {len(n)}")
-                for v, s in zip(n, t):
-                    walk(v, s)
-        walk(self._node, tree)
+        _walk_up_to(self._node, tree, out)
         return out
+
+
+# The walks are module functions that take their accumulators as
+# arguments: a nested function that calls itself sits in a reference
+# cycle with its closure, and the cycle would keep every leaf it saw (a
+# train step's old state, its gradients) alive until the garbage
+# collector's next pass.
+
+
+def _build(n, it):
+    if n is _LEAF:
+        return next(it)
+    if n is None:
+        return None
+    if isinstance(n, dict):
+        return {k: _build(v, it) for k, v in n.items()}
+    if isinstance(n, list):
+        return [_build(v, it) for v in n]
+    return tuple(_build(v, it) for v in n)
+
+
+def _walk_up_to(n, t, out: list) -> None:
+    if n is _LEAF:
+        out.append(t)
+    elif n is None:
+        if t is not None:
+            raise ValueError(f"expected None, got {type(t).__name__}")
+    elif isinstance(n, dict):
+        if sorted(t) != list(n):
+            raise ValueError(f"keys {sorted(t)} != {list(n)}")
+        for k, v in n.items():
+            _walk_up_to(v, t[k], out)
+    else:
+        if len(t) != len(n):
+            raise ValueError(f"{len(t)} children != {len(n)}")
+        for v, s in zip(n, t):
+            _walk_up_to(v, s, out)
 
 
 def _flatten(tree, is_leaf) -> tuple[list, list, TreeDef]:
     leaves: list = []
     paths: list = []
+    node = _walk(tree, (), is_leaf, leaves, paths)
+    return leaves, paths, TreeDef(node)
 
-    def walk(t, path):
-        if is_leaf is not None and is_leaf(t):
-            leaves.append(t)
-            paths.append(path)
-            return _LEAF
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: walk(t[k], path + (k,)) for k in sorted(t)}
-        if isinstance(t, list):
-            return [walk(v, path + (i,)) for i, v in enumerate(t)]
-        if isinstance(t, tuple):
-            return tuple(walk(v, path + (i,)) for i, v in enumerate(t))
+
+def _walk(t, path, is_leaf, leaves: list, paths: list):
+    if is_leaf is not None and is_leaf(t):
         leaves.append(t)
         paths.append(path)
         return _LEAF
-    node = walk(tree, ())
-    return leaves, paths, TreeDef(node)
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _walk(t[k], path + (k,), is_leaf, leaves, paths)
+                for k in sorted(t)}
+    if isinstance(t, list):
+        return [_walk(v, path + (i,), is_leaf, leaves, paths)
+                for i, v in enumerate(t)]
+    if isinstance(t, tuple):
+        return tuple(_walk(v, path + (i,), is_leaf, leaves, paths)
+                     for i, v in enumerate(t))
+    leaves.append(t)
+    paths.append(path)
+    return _LEAF
 
 
 def flatten(tree, is_leaf: Callable[[Any], bool] | None = None

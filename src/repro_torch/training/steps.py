@@ -6,8 +6,9 @@ or ``step(params, batch) -> dict`` (serve) with the reference's batch
 and result keys.  The state is ``{"params", "opt", "step"}`` (plain
 dicts; ``step`` a 0-d int32 tensor).  A train step takes its gradients
 with ``torch.autograd.grad`` on detached copies of the parameters (the
-state's tensors never require grad), then clips and updates under
-``no_grad``; it returns new tensors and changes none it was given.
+state's tensors never require grad), then clips and updates one leaf at
+a time under ``no_grad``, each gradient freed once its leaf is done; it
+returns new tensors and changes none it was given.
 The serve steps run without autograd; the LM decode step writes the new
 token into the cache tensors it is given, in place, and returns them.
 Given ``routes`` (a list the caller owns), an MoE model's serving steps
@@ -35,15 +36,38 @@ def make_state(params, optimizer: opt_mod.Optimizer):
                                 device=pytree.device(params))}
 
 
-def _finish(state, optimizer, grads, loss, extra=None):
-    grads, gnorm = opt_mod.clip_by_global_norm(grads, 1.0)
-    new_params, new_opt = optimizer.update(grads, state["params"],
-                                           state["opt"])
+def _finish(state, optimizer, grads: list, treedef, loss, extra=None):
+    """The update of a train step from the gradient leaves ``grads``
+    (``jax.tree.flatten`` order, ``treedef`` their tree), clipped to a
+    global norm of 1, one leaf at a time
+    (:func:`~repro_torch.training.optimizer.clip_and_update`: each entry
+    of ``grads`` is cleared once its leaf is done, so the caller keeps no
+    other reference to a gradient)."""
+    new_params, new_opt, gnorm = opt_mod.clip_and_update(
+        optimizer, grads, treedef, state["params"], state["opt"], 1.0)
     metrics = {"loss": loss, "grad_norm": gnorm, "step": state["step"] + 1}
     if extra:
         metrics.update(extra)
     return ({"params": new_params, "opt": new_opt,
              "step": state["step"] + 1}, metrics)
+
+
+def _grads(loss_fn: Callable, params, has_aux: bool = False):
+    """(``loss_fn(params)`` detached, or ``(loss, aux)`` with ``has_aux``,
+    its gradient leaves as a list in ``jax.tree.flatten`` order, their
+    tree); a parameter the loss does not reach gets zeros, as
+    ``jax.grad`` gives."""
+    leaves, treedef = pytree.flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        out = loss_fn(treedef.unflatten(live))
+        loss, aux = out if has_aux else (out, None)
+        grads = list(torch.autograd.grad(loss, live, allow_unused=True,
+                                         materialize_grads=True))
+    if has_aux:
+        return (loss.detach(), pytree.tree_map(torch.Tensor.detach, aux)), \
+            grads, treedef
+    return loss.detach(), grads, treedef
 
 
 def value_and_grad(loss_fn: Callable, params, has_aux: bool = False):
@@ -52,27 +76,17 @@ def value_and_grad(loss_fn: Callable, params, has_aux: bool = False):
     ``jax.grad`` gives.  With ``has_aux``, ``loss_fn`` returns ``(loss,
     aux)`` and the first item is ``(loss, aux)``, aux's tensors detached,
     as ``jax.value_and_grad(..., has_aux=True)`` gives."""
-    leaves, treedef = pytree.flatten(params)
-    live = [p.detach().requires_grad_() for p in leaves]
-    with torch.enable_grad():
-        out = loss_fn(treedef.unflatten(live))
-        loss, aux = out if has_aux else (out, None)
-        grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                    materialize_grads=True)
-    grads = treedef.unflatten(list(grads))
-    if has_aux:
-        return (loss.detach(), pytree.tree_map(torch.Tensor.detach, aux)), \
-            grads
-    return loss.detach(), grads
+    out, grads, treedef = _grads(loss_fn, params, has_aux)
+    return out, treedef.unflatten(grads)
 
 
 def _train_step(loss_fn: Callable, optimizer: opt_mod.Optimizer
                 ) -> Callable:
     def step(state, batch):
-        loss, grads = value_and_grad(lambda p: loss_fn(p, batch),
-                                     state["params"])
+        loss, grads, treedef = _grads(lambda p: loss_fn(p, batch),
+                                      state["params"])
         with torch.no_grad():
-            return _finish(state, optimizer, grads, loss)
+            return _finish(state, optimizer, grads, treedef, loss)
 
     return step
 
@@ -146,11 +160,11 @@ def vision_train_step(cfg, optimizer: opt_mod.Optimizer) -> Callable:
         return loss, (acc, new_p)
 
     def step(state, batch):
-        (loss, (acc, new_p)), grads = value_and_grad(
+        (loss, (acc, new_p)), grads, treedef = _grads(
             lambda p: loss_fn(p, batch), state["params"], has_aux=True)
         with torch.no_grad():
-            new_state, metrics = _finish(state, optimizer, grads, loss,
-                                         {"accuracy": acc})
+            new_state, metrics = _finish(state, optimizer, grads, treedef,
+                                         loss, {"accuracy": acc})
         if isinstance(cfg, vis_mod.ResNetConfig):
             new_state["params"] = _merge_bn_stats(new_state["params"], new_p)
         return new_state, metrics
@@ -196,10 +210,10 @@ def diffusion_train_step(cfg, optimizer: opt_mod.Optimizer) -> Callable:
             else diff_mod.unet_eps_loss)
 
     def step(state, batch):
-        loss_v, grads = value_and_grad(
+        loss_v, grads, treedef = _grads(
             lambda p: loss(p, batch, cfg, state["step"]), state["params"])
         with torch.no_grad():
-            return _finish(state, optimizer, grads, loss_v)
+            return _finish(state, optimizer, grads, treedef, loss_v)
 
     return step
 

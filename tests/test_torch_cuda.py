@@ -22,7 +22,10 @@ TF32 off (loss and grad norm rtol 1e-5, the parameters as
 2 lr a step, 99.9% within 1e-3 lr) and bf16 (the MoE block's backward:
 loss rtol 2^-6, each gradient leaf's cosine with the CPU's at least 0.99,
 since a router logit one bf16 ulp apart can move a token to another
-expert).
+expert).  The train steps' update, one leaf at a time
+(``clip_and_update``), on a tree with one 2 GiB leaf: its peak under its
+reckoning, the whole-tree composition it replaced over it, and both
+bit-equal.
 
 The vision family (no kernel: its attention is the plain one, its
 convolutions cuDNN's): ``max_pool`` on the card equals the CPU's exactly,
@@ -1072,6 +1075,68 @@ def test_cuda_moe_train_step_bf16_moments_matches_cpu(cuda):
                     pytree.leaves(cstate["params"])):
         assert c.dtype == torch.bfloat16
         assert float((c.cpu().float() - h.float()).abs().max()) <= 2 * lr
+
+
+# bytes a slice element of the leaf update's temporaries, at most: the
+# clipped float32 gradient (4) and up to 8 float32 values of AdamW's upd
+# alive at once (the new moments and parameter among them: 32), rounded
+# up
+LEAF_SLICE_BYTES = 40
+
+
+@pytest.mark.cuda
+def test_cuda_leaf_update_peak(cuda, monkeypatch):
+    """The train steps' update (``clip_and_update``) on a tree with one
+    2 GiB leaf (8 x 8192 x 8192 float32, updated in 8 slices of
+    ``SLICE_ELEMS``) and two small ones, AdamW with float32 moments, on
+    the card.  Its peak above what it starts with (the state and the
+    gradients) stays under its reckoning: the new state, 12 bytes an
+    element, plus ``LEAF_SLICE_BYTES`` a slice element.  The composition
+    the train steps used before is the control: ``clip_by_global_norm``
+    then ``update`` on whole leaves (no slice), whose clipped copy (4
+    bytes an element) and the whole leaf's temporaries take it past that
+    reckoning.  Both give the same bits."""
+    shapes = {"big": (8, 8192, 8192), "b": (4096,), "w": (64, 128)}
+
+    def tree(seed):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        return {k: torch.randn(s, generator=gen, device=cuda)
+                for k, s in shapes.items()}
+
+    opt = topt.adamw(lr=1e-3, weight_decay=0.01)
+    params = tree(0)
+    state = opt.init(params)
+    n = sum(t.numel() for t in pytree.leaves(params))
+    reckoned = 12 * n + LEAF_SLICE_BYTES * topt.SLICE_ELEMS
+
+    def peak(fn):
+        torch.cuda.synchronize(cuda)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        out = fn()
+        torch.cuda.synchronize(cuda)
+        return out, torch.cuda.max_memory_allocated(cuda) - base
+
+    with torch.no_grad():
+        leaves, treedef = pytree.flatten(tree(1))
+        (new_p, new_s, new_norm), new_peak = peak(
+            lambda: topt.clip_and_update(opt, leaves, treedef, params, state,
+                                         1.0))
+        assert all(g is None for g in leaves)
+        grads = tree(1)
+        monkeypatch.setattr(topt, "SLICE_ELEMS", 1 << 62)
+
+        def whole():
+            clipped, norm = topt.clip_by_global_norm(grads, 1.0)
+            return opt.update(clipped, params, state), norm
+
+        ((old_p, old_s), old_norm), old_peak = peak(whole)
+    assert new_peak <= reckoned < old_peak, (new_peak, reckoned, old_peak)
+    assert torch.equal(new_norm, old_norm)
+    for a, b in zip(pytree.leaves((new_p, new_s)),
+                    pytree.leaves((old_p, old_s))):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -582,3 +582,278 @@ def test_clip_by_global_norm_matches_reference(max_norm):
     bf = {"w": torch.ones(3, dtype=torch.bfloat16) * 3}
     clipped, _ = TO.clip_by_global_norm(bf, 1.0)
     assert clipped["w"].dtype == torch.float32
+
+
+# --------------------------------------------------------------------------
+# the train steps' update, one leaf at a time
+# --------------------------------------------------------------------------
+
+LEAF_OPTS = {
+    "adamw_f32_moments": lambda: TO.adamw(lr=0.05, weight_decay=0.1,
+                                          warmup_steps=3),
+    "adamw_bf16_moments": lambda: TO.adamw(lr=0.05, weight_decay=0.1,
+                                           warmup_steps=3,
+                                           state_dtype=torch.bfloat16),
+    "sgd": lambda: TO.sgd(lr=0.05, momentum=0.9, weight_decay=0.01),
+}
+
+
+def _leaf_trees(seed, dtype):
+    """A leaf of each kind the slicer meets: a stack whose first
+    dimension holds one row, a matrix whose 37 rows a slice does not
+    divide, a vector and a scalar."""
+    rng = np.random.default_rng(seed)
+    shapes = {"stack": (1, 6, 5, 7), "w": (37, 5), "b": (300,), "s": ()}
+    return {k: torch.from_numpy(np.asarray(3 * rng.standard_normal(s),
+                                           np.float32)).to(dtype)
+            for k, s in shapes.items()}
+
+
+def _counting(opt):
+    """``opt`` with its rule's ``upd`` calls counted (``calls[0]``)."""
+    calls = [0]
+
+    def rule(state):
+        upd, slots, rest = opt.rule(state)
+
+        def counted(*a):
+            calls[0] += 1
+            return upd(*a)
+        return counted, slots, rest
+
+    return TO.Optimizer(opt.init, opt.update, rule), calls
+
+
+def _assert_bit_equal(got, want):
+    g_leaves, g_def = pytree.flatten(got)
+    w_leaves, w_def = pytree.flatten(want)
+    assert str(g_def) == str(w_def)
+    for g, w in zip(g_leaves, w_leaves):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("sliced", [False, True], ids=["whole", "sliced"])
+@pytest.mark.parametrize("max_norm", [1.0, 1e4], ids=["clips", "no_clip"])
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32_params", "bf16_params"])
+@pytest.mark.parametrize("name", list(LEAF_OPTS))
+def test_leaf_update_matches_clip_then_update(name, param_dtype, max_norm,
+                                              sliced, monkeypatch):
+    """``clip_and_update`` (the train steps' update) against the whole-tree
+    composition it replaces, ``clip_by_global_norm`` then ``update``, over
+    5 steps: the same norm, parameters and state, bit for bit; each
+    gradient entry cleared; the inputs unchanged.  ``sliced`` updates
+    every leaf of more than 8 elements in slices of at most 8 (upd called
+    once a slice), against the whole leaves."""
+    opt = LEAF_OPTS[name]()
+    params = _leaf_trees(0, param_dtype)
+    before = [t.clone() for t in pytree.leaves(params)]
+    p_old, s_old = params, opt.init(params)
+    old_norms = []
+    for i in range(5):
+        clipped, norm = TO.clip_by_global_norm(
+            _leaf_trees(100 + i, param_dtype), max_norm)
+        p_old, s_old = opt.update(clipped, p_old, s_old)
+        old_norms.append(norm)
+    if sliced:
+        monkeypatch.setattr(TO, "SLICE_ELEMS", 8)
+    counted, calls = _counting(opt)
+    p_new, s_new = params, opt.init(params)
+    for i in range(5):
+        leaves, treedef = pytree.flatten(_leaf_trees(100 + i, param_dtype))
+        p_new, s_new, norm = TO.clip_and_update(counted, leaves, treedef,
+                                                p_new, s_new, max_norm)
+        assert all(g is None for g in leaves)
+        assert torch.equal(norm, old_norms[i])
+    _assert_bit_equal(p_new, p_old)
+    _assert_bit_equal(s_new, s_old)
+    assert all(torch.equal(a, b) for a, b in zip(before,
+                                                  pytree.leaves(params)))
+    # the (1, 6, 5, 7) stack in slices of one row of 7 at each of its 6
+    # x 5 leading indices, the matrix in its 37 rows of 5 one at a time,
+    # the vector of 300 in runs of 8
+    per_step = (30 + 37 + 38 + 1) if sliced else 4
+    assert calls[0] == 5 * per_step
+
+
+@pytest.mark.parametrize("case", [
+    ("adamw", "float32", "float32"), ("adamw", "bfloat16", "bfloat16"),
+    ("adamw", "bfloat16", "float32"), ("sgd", None, "bfloat16"),
+    ("sgd", None, "float32")],
+    ids=["adamw_f32", "adamw_bf16_bf16_params", "adamw_bf16_f32_params",
+         "sgd_bf16", "sgd_f32"])
+def test_sliced_leaf_update_matches_reference_eager(case, monkeypatch):
+    """``clip_and_update`` with every leaf in slices of 1000 elements (the
+    64 x 128 matrix in 9 slices of 7 rows and one of 1) against the
+    reference's eager ``clip_by_global_norm`` then ``update`` on the same
+    gradients, 12 steps, bit for bit, as
+    ``test_adamw_bf16_state_matches_reference`` holds the whole-tree
+    update.  At a ``max_norm`` the gradients stay under, the clip scale is
+    exactly 1 on both sides (their norms, float32 sums in another order,
+    agree within rtol 1e-6: ``test_clip_by_global_norm_matches_reference``)."""
+    opt, state_dtype, dtype = case
+    kw = dict(lr=0.05, momentum=0.9, weight_decay=0.01)
+    if opt == "adamw":
+        kw = dict(lr=0.05, weight_decay=0.1, warmup_steps=3)
+        jopt = JO.adamw(state_dtype=getattr(jnp, state_dtype), **kw)
+        topt = TO.adamw(state_dtype=getattr(torch, state_dtype), **kw)
+    else:
+        jopt, topt = JO.sgd(**kw), TO.sgd(**kw)
+    monkeypatch.setattr(TO, "SLICE_ELEMS", 1000)
+    counted, calls = _counting(topt)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def both(tree):
+        j = jax.tree.map(lambda x: jnp.asarray(x).astype(jdt), tree)
+        return j, pytree.tree_map(
+            lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))
+                                       ).to(tdt), j)
+
+    jp, tp = both(_wide_trees(0))
+    js, ts = jopt.init(jp), topt.init(tp)
+    for i in range(12):
+        jg, tg = both(_wide_trees(100 + i))
+        jg, _ = JO.clip_by_global_norm(jg, 1e4)
+        jp, js = jopt.update(jg, jp, js)
+        leaves, treedef = pytree.flatten(tg)
+        with torch.no_grad():
+            tp, ts, _ = TO.clip_and_update(counted, leaves, treedef, tp, ts,
+                                           1e4)
+    assert calls[0] == 12 * (10 + 1)
+    _assert_trees_close(tp, jp, atol=0, rtol=0)
+    for k in (("mu", "nu") if opt == "adamw" else ("vel",)):
+        _assert_trees_close(ts[k], js[k], atol=0, rtol=0)
+    assert int(ts["step"]) == int(js["step"]) == 12
+
+
+def _whole_tree_step(cfg, opt):
+    """``lm_train_step`` as it was composed before the update went leaf
+    by leaf: the gradient tree, ``clip_by_global_norm`` on it, then
+    ``opt.update`` on the clipped tree."""
+    def step(state, batch):
+        loss, grads = TS.value_and_grad(
+            lambda p: TT.lm_loss(p, batch, cfg), state["params"])
+        with torch.no_grad():
+            grads, gnorm = TO.clip_by_global_norm(grads, 1.0)
+            params, opt_state = opt.update(grads, state["params"],
+                                           state["opt"])
+        return ({"params": params, "opt": opt_state,
+                 "step": state["step"] + 1},
+                {"loss": loss, "grad_norm": gnorm, "step": state["step"] + 1})
+
+    return step
+
+
+@pytest.mark.parametrize("state_dtype,sliced", [
+    (torch.float32, False), (torch.bfloat16, True)],
+    ids=["f32_moments_whole", "bf16_moments_sliced"])
+def test_three_moe_train_steps_unchanged_by_leaf_update(state_dtype, sliced,
+                                                        monkeypatch):
+    """Three ``lm_train_step``s of mixtral's smoke config in bf16 give the
+    bits of the whole-tree composition (:func:`_whole_tree_step`): loss,
+    grad norm, parameters and moments; ``sliced`` runs every leaf of more
+    than 64 elements in slices (the expert stacks in runs of rows, expert
+    by expert)."""
+    cfg = dataclasses.replace(TT.from_jax_config(jmixtral.smoke_config()),
+                              param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    params = TT.init_params(torch.Generator().manual_seed(5), cfg,
+                            device="cpu")
+    opt = TO.adamw(lr=1e-3, warmup_steps=2, weight_decay=0.01,
+                   state_dtype=state_dtype)
+    batches = [_torch(_lm_batch(cfg.vocab_size, s=24, seed=20 + i))
+               for i in range(3)]
+    old = TS.make_state(params, opt)
+    old_m = []
+    for b in batches:
+        old, m = _whole_tree_step(cfg, opt)(old, b)
+        old_m.append(m)
+    if sliced:
+        monkeypatch.setattr(TO, "SLICE_ELEMS", 64)
+    new = TS.make_state(params, opt)
+    step = TS.lm_train_step(cfg, opt)
+    for b, om in zip(batches, old_m):
+        new, m = step(new, b)
+        for k in ("loss", "grad_norm", "step"):
+            assert torch.equal(m[k], om[k])
+    _assert_bit_equal(new, old)
+
+
+def _smoke_train_cell(arch_id, shape):
+    from repro_torch.configs import base as tbase
+    from repro_torch.launch import cells as tcells
+
+    arch = tbase.get_arch(arch_id)
+    arch = dataclasses.replace(arch, config=arch.smoke)
+    build = {"lm": tcells._lm_cell, "vision": tcells._vision_cell,
+             "diffusion": tcells._diffusion_cell}[arch.family]
+    return build(arch, shape)
+
+
+@pytest.mark.parametrize("arch_id,shape", [
+    ("mixtral_8x22b", dict(seq_len=16, global_batch=2)),
+    ("resnet_50", dict(img_res=32, batch=2)),
+    ("flux_dev", dict(img_res=32, batch=1))],
+    ids=["lm", "vision", "diffusion"])
+def test_train_steps_free_each_gradient_before_the_next_leaf(
+        arch_id, shape, monkeypatch):
+    """``lm_train_step``, ``vision_train_step`` and
+    ``diffusion_train_step`` keep no reference to a gradient once its
+    leaf is updated: when a leaf's update starts, every earlier leaf's
+    gradient is already freed (a weak reference to it is dead)."""
+    from repro_torch.configs import base as tbase
+    from repro_torch.launch import cells as tcells
+
+    import weakref
+
+    cell = _smoke_train_cell(arch_id, tbase.ShapeSpec("t", "train", **shape))
+    state, batch = tcells.materialize(cell, device="cpu", seed=4)
+    seen, alive_at = [], []
+    inner = TO._leaf_update
+
+    def watched(upd, g, *a):
+        alive_at.append(sum(r() is not None for r in seen))
+        seen.append(weakref.ref(g))
+        return inner(upd, g, *a)
+
+    monkeypatch.setattr(TO, "_leaf_update", watched)
+    new, m = cell.step(state, batch)
+    assert len(seen) == len(pytree.leaves(state["params"])) > 10
+    assert alive_at == [0] * len(seen)
+    assert bool(torch.isfinite(m["loss"])) and int(m["step"]) == 1
+
+
+def test_tree_walks_and_train_step_keep_no_leaf_alive():
+    """With the cyclic garbage collector off, a tensor that ``flatten``,
+    ``flatten_up_to``, ``unflatten`` and ``tree_map`` saw, and a train
+    step's new state, are freed as soon as the caller drops them (a
+    recursive closure's reference cycle kept every leaf it saw alive
+    until the collector's next pass: a train loop's old state, beside
+    the new one)."""
+    import gc
+    import weakref
+
+    cfg = TT.from_jax_config(jsmol.smoke_config())
+    opt = TO.adamw(lr=1e-2)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    state = TS.make_state(params, opt)
+    batch = _torch(_lm_batch(cfg.vocab_size))
+    step = TS.lm_train_step(cfg, opt)
+    gc.collect()
+    gc.disable()
+    try:
+        tree = {"a": [torch.ones(3), None, (torch.zeros(2),)],
+                "b": torch.ones(1)}
+        leaves, treedef = pytree.flatten(tree)
+        refs = [weakref.ref(t) for t in leaves]
+        treedef.flatten_up_to(tree)
+        pytree.tree_map(lambda t: t + 1, treedef.unflatten(leaves))
+        del tree, leaves
+        new, _ = step(state, batch)
+        refs += [weakref.ref(t) for t in pytree.leaves(new)]
+        del new
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        gc.enable()
