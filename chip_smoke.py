@@ -1362,13 +1362,23 @@ def check_small_input() -> None:
           f"{worst['scores']:.3g} (tol 1e-3)")
 
 
+def phase_ms(tick) -> tuple[float, float]:
+    """The drain's and the ingestion's wall ms in pod tick ``tick``, from
+    the server's own spans (``repro_torch.tracing``; ``PodServer.step``
+    numbers its tick by the frame it serves)."""
+    from repro_torch import tracing
+
+    totals = tracing.tick_totals(tick)
+    return tuple(totals.get(name, (0.0,))[0] * 1e3
+                 for name in ("drain", "ingest"))
+
+
 def tick_server(loops, backends, **kw):
-    """A ``PodServer`` that records what the tick lines print, through
-    overrides that call the server's own methods: the drain's and the
-    ingestion's wall ms (``phase``, which the caller zeroes each tick),
-    and ``_suppress_tick``'s inputs (``tick``): the raw row lengths, the
-    padding decision, and the padded rows as the server builds them, with
-    the float32 keep mask it applied, for the bf16 SphIoU flip check."""
+    """A ``PodServer`` that records ``_suppress_tick``'s inputs
+    (``tick``), through an override that calls the server's own method:
+    the raw row lengths, the padding decision, and the padded rows as
+    the server builds them, with the float32 keep mask it applied, for
+    the bf16 SphIoU flip check."""
     import numpy as np
 
     from repro_torch.core.sphere import nms_auto_backend, pad_detection_rows
@@ -1377,18 +1387,7 @@ def tick_server(loops, backends, **kw):
     class TickServer(PodServer):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
-            self.phase = dict(drain=0.0, ingest=0.0)
             self.tick = None
-
-        def _execute(self, ops, timeline, close):
-            t = time.perf_counter()
-            super()._execute(ops, timeline, close)
-            self.phase["drain"] += (time.perf_counter() - t) * 1e3
-
-        def _ingest(self):
-            t = time.perf_counter()
-            super()._ingest()
-            self.phase["ingest"] += (time.perf_counter() - t) * 1e3
 
         def _suppress_tick(self, plans):
             raw = [len(res.detections) for _, res in plans]
@@ -1532,7 +1531,6 @@ def run_main_path(profile: bool = False) -> tuple[dict, list]:
             torch.profiler.ProfilerActivity.CUDA])
             if profile and f == 3 else contextlib.nullcontext())
         uploads, hits = backend.frame_uploads, backend.crop_cache_hits
-        server.phase = dict(drain=0.0, ingest=0.0)
         n_timelines = len(server.timelines)
         with prof:
             t = time.perf_counter()
@@ -1552,7 +1550,7 @@ def run_main_path(profile: bool = False) -> tuple[dict, list]:
                               for r in results])
         total_dets += n
         per_variant = per_variant_requests(server, n_timelines)
-        drain, ingest = server.phase["drain"], server.phase["ingest"]
+        drain, ingest = phase_ms(f)
         print(f"tick {f}: requests per variant {per_variant}, detections "
               f"{rec['raw']} -> {[len(r) for r in results]}, wall ms "
               f"{wall:.1f} (emission {wall - drain - ingest:.1f}, drain "
@@ -1774,7 +1772,6 @@ def run_mixed_path(det_params, profile: bool = False) -> dict:
             if profile and f == 3 else contextlib.nullcontext())
         uploads = (det.frame_uploads, act.frame_uploads)
         act_gs = act_launches.get("gnomonic_sample", 0)
-        server.phase = dict(drain=0.0, ingest=0.0)
         n_timelines = len(server.timelines)
         with prof:
             t = time.perf_counter()
@@ -1792,7 +1789,7 @@ def run_mixed_path(det_params, profile: bool = False) -> dict:
                  enumerate(results) if tasks[s] != "detection" for d in r]
         n_actions += len(preds)
         up = (det.frame_uploads - uploads[0], act.frame_uploads - uploads[1])
-        drain, ingest = server.phase["drain"], server.phase["ingest"]
+        drain, ingest = phase_ms(f)
         print(f"mixed tick {f}: wall ms {wall:.1f} (emission "
               f"{wall - drain - ingest:.1f}, drain {drain:.1f}, ingest "
               f"{ingest:.1f}); requests per (task, variant) {per_variant}; "
@@ -4173,14 +4170,12 @@ def run_deadline_against_sync(params) -> None:
     for f in range(1, POLICY_TICKS + 1):
         walls = {}
         for policy, server in pods.items():
-            server.phase = dict(drain=0.0, ingest=0.0)
             n_tl = len(server.timelines)
             t = time.perf_counter()
             server.step(f)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-            walls[policy] = (wall, server.phase["drain"],
-                             server.phase["ingest"],
+            walls[policy] = (wall, *phase_ms(f),
                              per_variant_requests(server, n_tl))
         for a, b in zip(pods["deadline"].loops, pods["sync"].loops):
             ok, same, err = compare_dets(a._history[-1], b._history[-1],
@@ -4214,6 +4209,7 @@ def serve_async(params, videos, checks: bool):
     request records)."""
     import torch
 
+    from repro_torch import tracing
     from repro_torch.serving.telemetry import MemorySink
 
     backend = ladder_backend(params)
@@ -4239,19 +4235,21 @@ def serve_async(params, videos, checks: bool):
         uploads, hits = backend.frame_uploads, backend.crop_cache_hits
         n_carried, n_frames = server.stats.carried_requests, server.stats.frames
         n_tl, n_rec = len(server.timelines), len(carried)
-        server.phase = dict(drain=0.0, ingest=0.0)
         t = time.perf_counter()
         if f <= ASYNC_TICKS:
             server.step(f)
         else:
+            # the flush is no tick of the server's: trace it as tick f
+            tracing.begin_tick(f)
             server.flush()
+            tracing.end_tick()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
         if not checks:
             continue
         up = backend.frame_uploads - uploads
         staged = len(videos) if f <= ASYNC_TICKS else 0
-        drain, ingest = server.phase["drain"], server.phase["ingest"]
+        drain, ingest = phase_ms(f)
         what = f"async tick {f}" if f <= ASYNC_TICKS else "async flush"
         print(f"{what}: wall ms {wall:.1f} (emission "
               f"{wall - drain - ingest:.1f}, drain {drain:.1f}, ingest "
@@ -4364,7 +4362,6 @@ def run_rung_1280(params, cfgs) -> None:
     chunks = []
     for f in range(1, RUNG_TICKS + 1):
         n_tl = len(server.timelines)
-        server.phase = dict(drain=0.0, ingest=0.0)
         t = time.perf_counter()
         server.step(f)
         torch.cuda.synchronize()
@@ -4375,7 +4372,7 @@ def run_rung_1280(params, cfgs) -> None:
         print(f"rung tick {f}: budget_s {budget} (tried {on_rung}); requests "
               f"per variant {per_variant_requests(server, n_tl)}; {name} "
               f"chunks {sizes}; wall ms {wall:.1f} (drain "
-              f"{server.phase['drain']:.1f}); {card_line()}")
+              f"{phase_ms(f)[0]:.1f}); {card_line()}")
     check(max(chunks, default=0) >= 2,
           f"no {name} chunk of batch >= 2: {chunks}")
     recs = [r for r in seen if r["size"] == RUNG_SIZE]

@@ -20,6 +20,7 @@ from typing import Callable, Protocol, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import accuracy as acc_mod
 from repro_torch.core import allocation, discovery, sroi
 from repro_torch.core.sphere import sph_nms_batch
@@ -171,6 +172,9 @@ class OmniSenseLoop:
         # detection history: most recent `delta` frames
         self._history: list[list[sroi.Detection]] = []
         self._discovery = discovery.DiscoveryState()
+        # the key of this stream's spans (``repro_torch.tracing``);
+        # ``PodServer`` sets it to the stream's number
+        self.trace_key = None
 
     # -- helpers ----------------------------------------------------------
 
@@ -198,39 +202,41 @@ class OmniSenseLoop:
         through :meth:`begin_frame`; the pod server instead collects
         every stream's context and solves the coupled pod-level
         allocation before handing each plan to :meth:`emit_pending`."""
-        t0 = time.perf_counter()
-        self._frame_idx += 1
-        explore_frame = (self.explore_every > 0
-                         and self._frame_idx % self.explore_every == 0)
-        affordable = [i for i, c in enumerate(self.explore_costs)
-                      if c <= 0.6 * self.budget_s]
-        explore_idx = max(affordable) if affordable else             int(np.argmin(self.explore_costs))
-        explore_cost = self.explore_costs[explore_idx]
-        budget = self.budget_s
-        if explore_frame:
-            budget = max(0.0, budget - explore_cost)
-        srois = sroi.predict_srois(
-            self._flat_history(),
-            f=self.f,
-            gamma=self.gamma,
-            n_categories=self.n_categories,
-        )
-        acc = d_pre = d_inf = None
-        if srois:
-            acc = self._weighted_acc_matrix(srois)
-            d_pre, d_inf = self.latency_model.delays(srois, self.variants)
-        return FrameContext(
-            frame=frame,
-            srois=srois,
-            acc=acc,
-            d_pre=d_pre,
-            d_inf=d_inf,
-            budget=budget,
-            explore_frame=explore_frame,
-            explore_idx=explore_idx,
-            explore_cost=explore_cost,
-            t0=t0,
-        )
+        with tracing.span("emit.predict", self.trace_key):
+            t0 = time.perf_counter()
+            self._frame_idx += 1
+            explore_frame = (self.explore_every > 0
+                             and self._frame_idx % self.explore_every == 0)
+            affordable = [i for i, c in enumerate(self.explore_costs)
+                          if c <= 0.6 * self.budget_s]
+            explore_idx = (max(affordable) if affordable
+                           else int(np.argmin(self.explore_costs)))
+            explore_cost = self.explore_costs[explore_idx]
+            budget = self.budget_s
+            if explore_frame:
+                budget = max(0.0, budget - explore_cost)
+            srois = sroi.predict_srois(
+                self._flat_history(),
+                f=self.f,
+                gamma=self.gamma,
+                n_categories=self.n_categories,
+            )
+            acc = d_pre = d_inf = None
+            if srois:
+                acc = self._weighted_acc_matrix(srois)
+                d_pre, d_inf = self.latency_model.delays(srois, self.variants)
+            return FrameContext(
+                frame=frame,
+                srois=srois,
+                acc=acc,
+                d_pre=d_pre,
+                d_inf=d_inf,
+                budget=budget,
+                explore_frame=explore_frame,
+                explore_idx=explore_idx,
+                explore_cost=explore_cost,
+                t0=t0,
+            )
 
     def emit_pending(self, ctx: FrameContext,
                      plan: allocation.Plan | None) -> PendingFrame:
@@ -281,8 +287,9 @@ class OmniSenseLoop:
         ctx = self.frame_context(frame)
         plan = None
         if ctx.srois:
-            plan = allocation.allocate(ctx.acc, ctx.d_pre, ctx.d_inf,
-                                       ctx.budget)
+            with tracing.span("emit.allocate", self.trace_key):
+                plan = allocation.allocate(ctx.acc, ctx.d_pre, ctx.d_inf,
+                                           ctx.budget)
         return self.emit_pending(ctx, plan)
 
     def finish_frame(self, pending: PendingFrame,
@@ -306,8 +313,9 @@ class OmniSenseLoop:
         discovered = False
         if pending.explore_frame or self._discovery.should_discover(
                 self.budget_s, planned_latency):
-            detections.extend(self.backend.infer_erp(
-                pending.frame, self.variants[pending.explore_idx]))
+            with tracing.span("ingest.discovery", self.trace_key):
+                detections.extend(self.backend.infer_erp(
+                    pending.frame, self.variants[pending.explore_idx]))
             discovered = True
             planned_latency = min(self.budget_s,
                                   planned_latency + pending.explore_cost)

@@ -47,6 +47,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.kernels.nms.ops import MAX_N
 
@@ -412,13 +413,13 @@ def sph_nms_batch(
         parts = []
         for lo in range(0, b, chunk):
             hi = min(lo + chunk, b)
-            parts.append(_sph_nms_batch_torch(
+            parts.append(tracing.to_host(_sph_nms_batch_torch(
                 torch.as_tensor(boxes[lo:hi], dtype=torch.float32, device=dev),
                 torch.as_tensor(scores[lo:hi], dtype=torch.float32,
                                 device=dev),
                 torch.as_tensor(mask[lo:hi], device=dev),
                 iou_threshold, use_kernels=backend == "cuda",
-                iou_dtype=low).cpu().numpy())
+                iou_dtype=low)))
         keep = np.concatenate(parts, axis=0)
     else:
         raise ValueError(f"unknown backend {backend!r}")

@@ -17,8 +17,9 @@ Every C entry point takes its pointers and the CUDA stream as
 its launch; :func:`check` raises on a non-zero value, because a refused
 launch never runs and a later synchronise does not report it.
 
-The module also keeps the launch counts: each wrapper calls
-:func:`count` once where it launches its kernel, and nowhere else.
+Each wrapper calls :func:`count` once where it launches its kernel, and
+nowhere else; the counts are ``repro_torch.tracing``'s ``launch.<name>``
+counters, so a pod tick's launches show among its counters.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch import tracing
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,7 +43,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
-_LAUNCHES: dict[str, int] = {}
 
 
 def kernel_names() -> list[str]:
@@ -179,12 +181,14 @@ def check(err: int, what: str) -> None:
 
 def count(name: str) -> None:
     """Record one launch of kernel ``name``."""
-    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+    tracing.count("launch." + name)
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    """Launches by kernel since the last :func:`reset_launch_counts`."""
+    return {k[7:]: v for k, v in tracing.totals().items()
+            if k.startswith("launch.")}
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
+    tracing.reset_totals("launch.")

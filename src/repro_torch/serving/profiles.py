@@ -24,6 +24,7 @@ import time
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import accuracy as acc_mod
 from repro_torch.models import detector as det_mod
 
@@ -127,11 +128,13 @@ def measure_host_profile(reduced: bool = True, repeats: int = 3,
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize(dev)
+            tracing.count("host_syncs")
             start.record()
             for _ in range(repeats):
                 det_mod.apply(params, img, c)
             end.record()
             end.synchronize()
+            tracing.count("host_syncs")
             out[cfg.name] = start.elapsed_time(end) / 1e3 / repeats
         else:
             t0 = time.perf_counter()

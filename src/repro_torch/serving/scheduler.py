@@ -35,6 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import accuracy as acc_mod
 from repro_torch.core import sroi as sroi_mod
 from repro_torch.data.synthetic import SyntheticVideo
@@ -439,12 +440,14 @@ class FrameStaging:
                     # CPU threads (PyTorch's copy), the upload on the DMA
                     # engine while the host goes on planning
                     buf = self._pinned_buffer(shape, k)
-                    buf[0].copy_(host)
+                    with tracing.span("stage.host_copy"):
+                        buf[0].copy_(host)
                     stack[k].copy_(buf[0], non_blocking=True)
                     buf[1].record()
                 else:
                     stack[k].copy_(host)
                 self.frame_uploads += 1
+                tracing.count("h2d_bytes", stack[k].nbytes)
                 self._staged[id(f)] = (f, stack, k)
 
     def _pinned_buffer(self, shape: tuple, k: int) -> list:
@@ -454,7 +457,9 @@ class FrameStaging:
         while len(pool) <= k:
             pool.append([torch.empty(shape, dtype=torch.float32,
                                      pin_memory=True), torch.cuda.Event()])
-        pool[k][1].synchronize()
+        with tracing.span("stage.pinned_wait"):
+            pool[k][1].synchronize()
+        tracing.count("host_syncs")
         return pool[k]
 
     def release_frames(self) -> None:
@@ -472,9 +477,12 @@ class FrameStaging:
             return ent[1][ent[2]]
         self.frame_uploads += 1
         if isinstance(frame_img, torch.Tensor):
-            return frame_img.to(device=self.device, dtype=torch.float32)
-        return torch.as_tensor(np.asarray(frame_img, dtype=np.float32),
-                               device=self.device)
+            out = frame_img.to(device=self.device, dtype=torch.float32)
+        else:
+            out = torch.as_tensor(np.asarray(frame_img, dtype=np.float32),
+                                  device=self.device)
+        tracing.count("h2d_bytes", out.nbytes)
+        return out
 
 
 class TorchDetectorBackend(FrameStaging):
@@ -501,6 +509,11 @@ class TorchDetectorBackend(FrameStaging):
     is not staged (a request carried across ticks, a direct
     :meth:`launch_srois_batched` caller) is uploaded with its chunk.
     ``frame_uploads`` counts the frames uploaded either way.
+
+    The tick's work is traced (``repro_torch.tracing``): each chunk's
+    launch, its wait on the copies back and its host lift are spans keyed
+    by the chunk's number in the tick; uploads, copies back and forwards
+    are counted where they happen.
 
     Everything runs on ``device`` (default ``cuda``; with no CUDA device
     and no device given the constructor raises).  Float32 throughout:
@@ -581,9 +594,10 @@ class TorchDetectorBackend(FrameStaging):
         outs = det_mod.apply(self.params[idx], pi[None], cfg)
         boxes, scores, classes = det_mod.decode(outs, cfg, self.conf,
                                                 max_det=self.max_det)
-        return self._row_to_dets(boxes[0].cpu().numpy(),
-                                 scores[0].cpu().numpy(),
-                                 classes[0].cpu().numpy(), region, size)
+        tracing.count("forwards")
+        return self._row_to_dets(tracing.to_host(boxes[0]),
+                                 tracing.to_host(scores[0]),
+                                 tracing.to_host(classes[0]), region, size)
 
     def _batched_fn(self, idx: int, b_pad: int, group=None):
         """The (apply + masked decode) forward of one (variant, padded
@@ -750,6 +764,7 @@ class TorchDetectorBackend(FrameStaging):
         for k, f in enumerate(distinct):
             frames[k].copy_(torch.as_tensor(f, dtype=torch.float32))
             self.frame_uploads += 1
+            tracing.count("h2d_bytes", frames[k].nbytes)
         return frames, frame_idx
 
     @torch.inference_mode()
@@ -771,40 +786,47 @@ class TorchDetectorBackend(FrameStaging):
         idx = variant.index - 1
         cfg = self.cfgs[idx]
         size = self.buckets.bucket_resolution(cfg.input_size)
-        launched = []  # (chunk, geoms, boxes, scores, classes)
+        # (chunk key, chunk, geoms, boxes, scores, classes); the key, the
+        # chunk's number in the tick, joins its launch, wait and lift spans
+        launched = []
         lo = 0
         for b in self.buckets.split(len(items)):
             chunk = items[lo:lo + b]
             lo += b
-            if self.fused:
-                pis, geoms = self._project_chunk(chunk, size)
-            else:
-                pis = torch.stack([self._project(f, r, size)
-                                   for f, r in chunk])
-                geoms = [None] * b
-            b_pad = self.buckets.pad_batch(b)
-            if group is not None and group.n_devices > 1:
-                # pad further to a group-width multiple so the batch
-                # splits evenly over the group's devices
-                b_pad = group.shard_batch(b_pad)
-            if b_pad > b:
-                pis = torch.cat(
-                    [pis, pis.new_zeros((b_pad - b,) + tuple(pis.shape[1:]))])
-            valid = torch.arange(b_pad, device=self.device) < b
-            boxes, scores, classes = self._batched_fn(idx, b_pad, group)(
-                self.params[idx], pis, valid)
-            launched.append((chunk, geoms, boxes, scores, classes))
+            key = tracing.seq("chunk")
+            with tracing.span("drain.launch", key):
+                if self.fused:
+                    pis, geoms = self._project_chunk(chunk, size)
+                else:
+                    pis = torch.stack([self._project(f, r, size)
+                                       for f, r in chunk])
+                    geoms = [None] * b
+                b_pad = self.buckets.pad_batch(b)
+                if group is not None and group.n_devices > 1:
+                    # pad further to a group-width multiple so the batch
+                    # splits evenly over the group's devices
+                    b_pad = group.shard_batch(b_pad)
+                if b_pad > b:
+                    pis = torch.cat([pis, pis.new_zeros(
+                        (b_pad - b,) + tuple(pis.shape[1:]))])
+                valid = torch.arange(b_pad, device=self.device) < b
+                boxes, scores, classes = self._batched_fn(idx, b_pad, group)(
+                    self.params[idx], pis, valid)
+            tracing.count("forwards")
+            launched.append((key, chunk, geoms, boxes, scores, classes))
 
         def resolve() -> list[list]:
             out: list[list] = []
-            for chunk, geoms, boxes, scores, classes in launched:
-                boxes = boxes.cpu().numpy()
-                scores = scores.cpu().numpy()
-                classes = classes.cpu().numpy()
-                for r, (_, region) in enumerate(chunk):
-                    out.append(self._row_to_dets(
-                        boxes[r], scores[r], classes[r], region, size,
-                        geom=geoms[r]))
+            for key, chunk, geoms, boxes, scores, classes in launched:
+                with tracing.span("drain.wait", key):
+                    boxes = tracing.to_host(boxes)
+                    scores = tracing.to_host(scores)
+                    classes = tracing.to_host(classes)
+                with tracing.span("drain.lift", key):
+                    for r, (_, region) in enumerate(chunk):
+                        out.append(self._row_to_dets(
+                            boxes[r], scores[r], classes[r], region, size,
+                            geom=geoms[r]))
             return out
 
         return resolve
@@ -831,10 +853,12 @@ class TorchDetectorBackend(FrameStaging):
         outs = det_mod.apply(self.params[idx], resized[None], cfg)
         boxes, scores, classes = det_mod.decode(outs, cfg, self.conf,
                                                 max_det=self.max_det)
+        tracing.count("forwards")
         h, w = frame_img.shape[:2]
         dets = []
-        for b, s, c in zip(boxes[0].cpu().numpy(), scores[0].cpu().numpy(),
-                           classes[0].cpu().numpy()):
+        for b, s, c in zip(tracing.to_host(boxes[0]),
+                           tracing.to_host(scores[0]),
+                           tracing.to_host(classes[0])):
             if s <= 0:
                 continue
             # rectangular BB on the ERP -> SphBB via ERP coords

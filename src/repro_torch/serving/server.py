@@ -68,6 +68,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import allocation
 from repro_torch.core.omnisense import OmniSenseLoop
 from repro_torch.core.sphere import (IncrementalNms, nms_auto_backend,
@@ -345,6 +346,9 @@ class PodServer:
                  incremental_nms: bool = True):
         assert len(loops) == len(backends)
         self.loops = loops
+        # the tracer keys each loop's spans by its stream
+        for s, loop in enumerate(loops):
+            loop.trace_key = s
         self.backends = backends
         self.max_batch = max_batch
         self.policy = make_policy(policy) if policy is not None \
@@ -609,10 +613,11 @@ class PodServer:
                 if self.placement is not None and self.stats.sum_tick_inf_s > 0
                 else None)
         t_solve = time.perf_counter()
-        sol = pod_allocation.solve_pod(
-            problems, self.loops[0].variants, self.loops[0].latency_model,
-            buckets=self.buckets, placement=self.placement,
-            group_utilisation=util)
+        with tracing.span("emit.allocate", "pod"):
+            sol = pod_allocation.solve_pod(
+                problems, self.loops[0].variants,
+                self.loops[0].latency_model, buckets=self.buckets,
+                placement=self.placement, group_utilisation=util)
         solve_share = (time.perf_counter() - t_solve) / len(self.loops)
         self.stats.pod_ticks += 1
         self.stats.pod_rounds += sol.rounds
@@ -633,21 +638,28 @@ class PodServer:
         return out
 
     def step(self, frame_idx: int) -> None:
-        """Process one frame for every stream (one scheduler tick)."""
-        # ---- emission: every loop plans and parks its requests (the
-        # pod-allocate path plans all streams jointly first) ----
-        frames = []
-        for s, backend in enumerate(self.backends):
-            if hasattr(backend, "set_frame"):
-                backend.set_frame(frame_idx)
-            frames.append(self.frame_source(s, frame_idx)
-                          if self.frame_source is not None else None)
-        staged = self._stage_frames(frames)
+        """Process one frame for every stream (one scheduler tick, the
+        tracer's tick ``frame_idx``: ``repro_torch.tracing``)."""
+        tracing.begin_tick(frame_idx)
         try:
-            self._step(frame_idx, frames)
+            with tracing.span("tick"):
+                # ---- emission: every loop plans and parks its requests
+                # (the pod-allocate path plans all streams jointly
+                # first) ----
+                frames = []
+                for s, backend in enumerate(self.backends):
+                    if hasattr(backend, "set_frame"):
+                        backend.set_frame(frame_idx)
+                    frames.append(self.frame_source(s, frame_idx)
+                                  if self.frame_source is not None else None)
+                staged = self._stage_frames(frames)
+                try:
+                    self._step(frame_idx, frames)
+                finally:
+                    for backend in staged:
+                        backend.release_frames()
         finally:
-            for backend in staged:
-                backend.release_frames()
+            tracing.end_tick()
 
     def _stage_frames(self, frames: list) -> list:
         """Hand the tick's frames to each backend that stages them (a
@@ -660,45 +672,48 @@ class PodServer:
             if frame is not None and hasattr(backend, "stage_frames"):
                 by_backend.setdefault(id(backend), (backend, []))[1].append(
                     frame)
-        for backend, fs in by_backend.values():
-            backend.stage_frames(fs)
+        with tracing.span("stage"):
+            for backend, fs in by_backend.values():
+                backend.stage_frames(fs)
         return [backend for backend, _ in by_backend.values()]
 
     def _step(self, frame_idx: int, frames: list) -> None:
         """The tick after the frames are gathered: emission, drain,
         ingestion."""
         self._projected_load = None
-        if self.policy.pod_allocate:
-            emitted = self._pod_plan(frames)
-        else:
-            emitted = [loop.begin_frame(frame)
-                       for loop, frame in zip(self.loops, frames)]
-        for s, (loop, backend, pending) in enumerate(
-                zip(self.loops, self.backends, emitted)):
-            entry = _InFlightFrame(loop=loop, pending=pending,
-                                   emitted_s=self.clock.now,
-                                   done_s=self.clock.now,
-                                   frame_idx=frame_idx, stream=s)
-            self._inflight.append(entry)
-            self._by_owner[id(pending)] = entry
-            task = self._task(loop)
-            if pending.plan is not None:
-                self.stats.sum_plan_value += pending.plan.value
-                _bump(self.stats.plan_value_by_task, task,
-                      pending.plan.value)
-            for req in pending.requests:
-                self.queues.put(QueuedRequest(
-                    request=req, owner=pending, backend=backend,
-                    latency_model=loop.latency_model,
-                    deadline=loop.budget_s, emitted_s=self.clock.now,
-                    frame_idx=frame_idx, task=task))
-            if self.telemetry.enabled:
-                self.telemetry.emit(
-                    "emit", t_s=self.clock.now, stream=s, task=task,
-                    frame_idx=frame_idx, n_requests=len(pending.requests),
-                    plan_value=pending.plan.value
-                    if pending.plan is not None else 0.0,
-                    variants=[req.variant.name for req in pending.requests])
+        with tracing.span("emit"):
+            if self.policy.pod_allocate:
+                emitted = self._pod_plan(frames)
+            else:
+                emitted = [loop.begin_frame(frame)
+                           for loop, frame in zip(self.loops, frames)]
+            for s, (loop, backend, pending) in enumerate(
+                    zip(self.loops, self.backends, emitted)):
+                entry = _InFlightFrame(loop=loop, pending=pending,
+                                       emitted_s=self.clock.now,
+                                       done_s=self.clock.now,
+                                       frame_idx=frame_idx, stream=s)
+                self._inflight.append(entry)
+                self._by_owner[id(pending)] = entry
+                task = self._task(loop)
+                if pending.plan is not None:
+                    self.stats.sum_plan_value += pending.plan.value
+                    _bump(self.stats.plan_value_by_task, task,
+                          pending.plan.value)
+                for req in pending.requests:
+                    self.queues.put(QueuedRequest(
+                        request=req, owner=pending, backend=backend,
+                        latency_model=loop.latency_model,
+                        deadline=loop.budget_s, emitted_s=self.clock.now,
+                        frame_idx=frame_idx, task=task))
+                if self.telemetry.enabled:
+                    self.telemetry.emit(
+                        "emit", t_s=self.clock.now, stream=s, task=task,
+                        frame_idx=frame_idx, n_requests=len(pending.requests),
+                        plan_value=pending.plan.value
+                        if pending.plan is not None else 0.0,
+                        variants=[req.variant.name
+                                  for req in pending.requests])
 
         # ---- placement feedback: fold this tick's variant mix into the
         # popularity EMA and re-balance replica groups if the allocator
@@ -745,119 +760,123 @@ class PodServer:
     def _execute(self, ops, timeline: TickTimeline, close) -> None:
         """Dispatch a drain plan, book it on the event clock, charge
         the tick per the policy's close rule."""
-        results, dispatches = self.queues.drain_ops(ops, self.placement)
-        for d in dispatches:
-            self.stats.dispatches += 1
-            self.stats.batch_sizes.append(d["b"])
-            batched, per_request = self._dispatch_cost(d)
-            self.stats.sum_batched_inf_s += batched
-            self.stats.sum_per_request_inf_s += per_request
-            group = d.get("group")
-            gidx = group.index if group is not None else 0
-            n_dev = group.n_devices if group is not None else 1
-            timeline.open_group(gidx, self.clock.free_at(gidx))
-            launch, complete = self.clock.dispatch(gidx, batched)
-            event = DispatchEvent(
-                variant=d["variant"], b=d["b"], padded=d["padded"],
-                group=gidx, n_devices=n_dev, cost_s=batched,
-                launch_s=launch, complete_s=complete,
-                emitted_s=max(it.emitted_s for it in d["items"]),
-                tick=timeline.tick,
-                carried=sum(1 for it in d["items"] if it.age > 0))
-            timeline.record(event)
-            d["event"] = event
-            self.stats.group_busy_s[gidx] = (
-                self.stats.group_busy_s.get(gidx, 0.0) + batched)
-            self.stats.group_devices[gidx] = n_dev
-            delays = []
-            for it in d["items"]:
-                owner = self._by_owner[id(it.owner)]
-                owner.done_s = max(owner.done_s, complete)
-                delays.append(max(0.0, launch - it.emitted_s))
-            self.stats.queue_delays.extend(delays)
+        with tracing.span("drain"):
+            results, dispatches = self.queues.drain_ops(ops, self.placement)
+            for d in dispatches:
+                self.stats.dispatches += 1
+                self.stats.batch_sizes.append(d["b"])
+                batched, per_request = self._dispatch_cost(d)
+                self.stats.sum_batched_inf_s += batched
+                self.stats.sum_per_request_inf_s += per_request
+                group = d.get("group")
+                gidx = group.index if group is not None else 0
+                n_dev = group.n_devices if group is not None else 1
+                timeline.open_group(gidx, self.clock.free_at(gidx))
+                launch, complete = self.clock.dispatch(gidx, batched)
+                event = DispatchEvent(
+                    variant=d["variant"], b=d["b"], padded=d["padded"],
+                    group=gidx, n_devices=n_dev, cost_s=batched,
+                    launch_s=launch, complete_s=complete,
+                    emitted_s=max(it.emitted_s for it in d["items"]),
+                    tick=timeline.tick,
+                    carried=sum(1 for it in d["items"] if it.age > 0))
+                timeline.record(event)
+                d["event"] = event
+                self.stats.group_busy_s[gidx] = (
+                    self.stats.group_busy_s.get(gidx, 0.0) + batched)
+                self.stats.group_devices[gidx] = n_dev
+                delays = []
+                for it in d["items"]:
+                    owner = self._by_owner[id(it.owner)]
+                    owner.done_s = max(owner.done_s, complete)
+                    delays.append(max(0.0, launch - it.emitted_s))
+                self.stats.queue_delays.extend(delays)
+                if self.telemetry.enabled:
+                    self._dispatch_seq += 1
+                    self.telemetry.emit(
+                        "dispatch_launch", tick=event.tick,
+                        dispatch=self._dispatch_seq, variant=event.variant,
+                        task=self._variant_task.get(event.variant,
+                                                    "detection"),
+                        b=event.b, padded=event.padded, group=gidx,
+                        n_devices=n_dev, cost_s=batched, launch_s=launch,
+                        emitted_s=event.emitted_s, carried=event.carried,
+                        queue_delays=delays)
+                    self.telemetry.emit(
+                        "dispatch_complete", tick=event.tick,
+                        dispatch=self._dispatch_seq, variant=event.variant,
+                        group=gidx, complete_s=complete, cost_s=batched)
+            for item, dets in results:
+                self._by_owner[id(item.owner)].slots[item.request.slot] = dets
+            self.timelines.append(timeline)
+            if self.telemetry.enabled and len(self.queues):
+                self.telemetry.emit(
+                    "carry", tick=timeline.tick, t_s=self.clock.now,
+                    queued={name: c for name, c in self.queues.counts().items()
+                            if c},
+                    total=len(self.queues))
+            charge, next_start = close(self.clock, timeline,
+                                       self._tick_lat, self._overlap_lat)
+            self.stats.sum_tick_inf_s += charge
+            self.clock.advance(next_start)
             if self.telemetry.enabled:
-                self._dispatch_seq += 1
                 self.telemetry.emit(
-                    "dispatch_launch", tick=event.tick,
-                    dispatch=self._dispatch_seq, variant=event.variant,
-                    task=self._variant_task.get(event.variant, "detection"),
-                    b=event.b, padded=event.padded, group=gidx,
-                    n_devices=n_dev, cost_s=batched, launch_s=launch,
-                    emitted_s=event.emitted_s, carried=event.carried,
-                    queue_delays=delays)
-                self.telemetry.emit(
-                    "dispatch_complete", tick=event.tick,
-                    dispatch=self._dispatch_seq, variant=event.variant,
-                    group=gidx, complete_s=complete, cost_s=batched)
-        for item, dets in results:
-            self._by_owner[id(item.owner)].slots[item.request.slot] = dets
-        self.timelines.append(timeline)
-        if self.telemetry.enabled and len(self.queues):
-            self.telemetry.emit(
-                "carry", tick=timeline.tick, t_s=self.clock.now,
-                queued={name: c for name, c in self.queues.counts().items()
-                        if c},
-                total=len(self.queues))
-        charge, next_start = close(self.clock, timeline,
-                                   self._tick_lat, self._overlap_lat)
-        self.stats.sum_tick_inf_s += charge
-        self.clock.advance(next_start)
-        if self.telemetry.enabled:
-            self.telemetry.emit(
-                "tick_close", tick=timeline.tick, t_s=timeline.start,
-                charge_s=charge, next_start_s=next_start,
-                dispatches=len(timeline.events))
+                    "tick_close", tick=timeline.tick, t_s=timeline.start,
+                    charge_s=charge, next_start_s=next_start,
+                    dispatches=len(timeline.events))
 
     def _ingest(self) -> None:
         """Finish every in-flight frame whose requests all resolved
         (in emission order, so per-stream history stays in frame
         order), with one batched NMS dispatch across them."""
-        finishing = [e for e in self._inflight if e.complete]
-        if not finishing:
-            return
-        self._inflight = [e for e in self._inflight if not e.complete]
-        plans = []
-        for e in finishing:
-            del self._by_owner[id(e.pending)]
-            request_detections = [e.slots.get(i, [])
-                                  for i in range(len(e.pending.requests))]
-            # a frame finishing a tick late (carried requests) must run
-            # its discovery pass against ITS OWN frame's ground truth,
-            # not whatever frame the tick advanced the simulation to
-            backend = e.loop.backend
-            if e.frame_idx is not None and hasattr(backend, "set_frame"):
-                backend.set_frame(e.frame_idx)
-            result = e.loop.finish_frame(e.pending, request_detections,
-                                         defer_nms=True)
-            plans.append((e.loop, result))
+        with tracing.span("ingest"):
+            finishing = [e for e in self._inflight if e.complete]
+            if not finishing:
+                return
+            self._inflight = [e for e in self._inflight if not e.complete]
+            plans = []
+            for e in finishing:
+                del self._by_owner[id(e.pending)]
+                request_detections = [e.slots.get(i, [])
+                                      for i in range(len(e.pending.requests))]
+                # a frame finishing a tick late (carried requests) must run
+                # its discovery pass against ITS OWN frame's ground truth,
+                # not whatever frame the tick advanced the simulation to
+                backend = e.loop.backend
+                if e.frame_idx is not None and hasattr(backend, "set_frame"):
+                    backend.set_frame(e.frame_idx)
+                result = e.loop.finish_frame(e.pending, request_detections,
+                                             defer_nms=True)
+                plans.append((e.loop, result))
 
-        # one batched spherical-NMS dispatch for every frame that
-        # finished this tick (instead of B Python loops)
-        self.stats.sum_overhead += self._suppress_tick(plans)
+            # one batched spherical-NMS dispatch for every frame that
+            # finished this tick (instead of B Python loops)
+            with tracing.span("ingest.nms"):
+                self.stats.sum_overhead += self._suppress_tick(plans)
 
-        for e, (_, result) in zip(finishing, plans):
-            self.stats.frames += 1
-            _bump(self.stats.frames_by_task, self._task(e.loop))
-            self.stats.total_detections += len(result.detections)
-            self.stats.sum_e2e += result.planned_latency
-            self.stats.sum_overhead += result.overhead_s
-            e2e = max(0.0, e.done_s - e.emitted_s)
-            self.stats.event_e2e.append(e2e)
-            violated = (self.slo_s is not None
-                        and e2e > self.slo_s + 1e-12)
-            if violated:
-                self.stats.slo_violations += 1
-            if (e.stream is not None
-                    and self._stream_frame.get(e.stream) is e):
-                del self._stream_frame[e.stream]
-            if self.telemetry.enabled:
-                self.telemetry.emit(
-                    "frame_finish", t_s=e.done_s, stream=e.stream,
-                    task=self._task(e.loop),
-                    frame_idx=e.frame_idx, event_e2e_s=e2e,
-                    n_detections=len(result.detections),
-                    det_digest=detections_digest(result.detections),
-                    slo_violation=violated)
+            for e, (_, result) in zip(finishing, plans):
+                self.stats.frames += 1
+                _bump(self.stats.frames_by_task, self._task(e.loop))
+                self.stats.total_detections += len(result.detections)
+                self.stats.sum_e2e += result.planned_latency
+                self.stats.sum_overhead += result.overhead_s
+                e2e = max(0.0, e.done_s - e.emitted_s)
+                self.stats.event_e2e.append(e2e)
+                violated = (self.slo_s is not None
+                            and e2e > self.slo_s + 1e-12)
+                if violated:
+                    self.stats.slo_violations += 1
+                if (e.stream is not None
+                        and self._stream_frame.get(e.stream) is e):
+                    del self._stream_frame[e.stream]
+                if self.telemetry.enabled:
+                    self.telemetry.emit(
+                        "frame_finish", t_s=e.done_s, stream=e.stream,
+                        task=self._task(e.loop),
+                        frame_idx=e.frame_idx, event_e2e_s=e2e,
+                        n_detections=len(result.detections),
+                        det_digest=detections_digest(result.detections),
+                        slo_violation=violated)
 
     def _suppress_tick(self, plans: list) -> float:
         """Batched spherical NMS across the tick; returns wall time.

@@ -38,6 +38,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import accuracy as acc_mod
 from repro_torch.core import sroi as sroi_mod
 from repro_torch.core.omnisense import OmniSenseLoop
@@ -343,7 +344,7 @@ class TorchActionBackend(FrameStaging):
                             dtype=torch.float32, device=self.device)
         batch[:b] = torch.stack(clips)
         logits = self._batched_fn(idx, b_pad)(self.params[idx], batch)
-        logits = logits[:b].cpu().numpy()
+        logits = tracing.to_host(logits[:b])
         out = []
         for row, (_, region) in zip(logits, items):
             e = np.exp(row - row.max())

@@ -25,6 +25,11 @@ wall-clock measurements, so recording the same seeded corpus twice
 yields byte-identical logs and a replay can be checked for
 BIT-IDENTICAL drift (the replay-determinism CI lane).
 
+Wall-clock time therefore lives elsewhere: the tick's spans and its
+counters of syncs, uploads and launches are ``repro_torch.tracing``'s,
+which ``PodServer.step`` fills beside this log and which no replay
+compares.
+
 :func:`format_timeline_report` is the offline operator surface: per-
 group utilisation, queueing-delay histogram and admission-verdict
 breakdown from a log alone — no server, no stats object.
