@@ -83,6 +83,132 @@ def test_cost_hook_path_matches_reference(seed):
     assert _plan(ident) == _plan(j_alloc.allocate(acc, d_pre, d_inf, budget))
 
 
+# The port's array frontier and staircase prune against the reference's
+# per-plan loop, bit for bit, at the loop's width (skip + five rungs):
+# ties come from accuracies rounded to 0.1, from columns that repeat, and
+# from the delays of a rung equal on every SRoI (as the latency model
+# prices them).
+TIES = ("none", "rounded", "duplicated", "equal_delays")
+
+
+def _ladder_instance(seed, r, ties):
+    rng = np.random.default_rng(seed)
+    acc = rng.uniform(0, 1, (6, r))
+    acc[0] = 0.0
+    d_pre = rng.uniform(0.01, 0.2, (6, r))
+    d_pre[0] = 0.0
+    d_inf = rng.uniform(0.02, 0.6, (6, r))
+    d_inf[0] = 0.0
+    if ties == "rounded":
+        acc = np.round(acc, 1)
+    elif ties == "duplicated":
+        col = np.arange(r) // 2
+        acc, d_pre, d_inf = acc[:, col], d_pre[:, col], d_inf[:, col]
+    elif ties == "equal_delays":
+        d_pre[:] = d_pre[:, :1]
+        d_inf[:] = d_inf[:, :1]
+    return acc, d_pre, d_inf
+
+
+def _bits(p):
+    return None if p is None else (
+        p.models, p.value.hex(), float(p.t_pre).hex(), float(p.t_done).hex())
+
+
+@pytest.mark.parametrize("ties", TIES)
+@pytest.mark.parametrize("r", range(1, 15))
+def test_array_dp_matches_reference_bitwise(r, ties):
+    acc, d_pre, d_inf = _ladder_instance(1000 * r + TIES.index(ties), r, ties)
+    # every plan fits the loose budget; the tight one skips SRoIs and the
+    # mid one takes cheaper rungs.  Beyond 8 columns the reference's loose
+    # frontier grows past a smoke test's time, save with equal delays
+    loose = float((d_pre + d_inf).max(axis=0).sum())
+    budgets = [0.15 * loose, 0.3 * loose]
+    if r <= 8 or ties == "equal_delays":
+        budgets.append(loose)
+    for budget in budgets:
+        got = t_alloc.allocate(acc, d_pre, d_inf, budget)
+        want = j_alloc.allocate(acc, d_pre, d_inf, budget)
+        assert _bits(got) == _bits(want)
+        assert type(got.value) is float and type(got.models[0]) is int
+    # infeasible: from the second column on both return None; on a
+    # single column the reference's max() of an empty frontier raises
+    if r > 1:
+        assert t_alloc.allocate(acc, d_pre, d_inf, -1.0) is None
+        assert j_alloc.allocate(acc, d_pre, d_inf, -1.0) is None
+    else:
+        assert t_alloc.allocate(acc, d_pre, d_inf, -1.0) is None
+        with pytest.raises(ValueError):
+            j_alloc.allocate(acc, d_pre, d_inf, -1.0)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_array_dp_cost_hook_and_empty_match_reference(seed):
+    acc, d_pre, d_inf = _ladder_instance(50 + seed, 3 + 2 * seed, TIES[seed])
+    budget = 0.2 * float((d_pre + d_inf).max(axis=0).sum())
+    got = t_alloc.allocate(acc, d_pre, d_inf, budget, cost_hook=_hook)
+    assert _bits(got) == _bits(j_alloc.allocate(acc, d_pre, d_inf, budget,
+                                                cost_hook=_hook))
+    empty = np.zeros((6, 0))
+    assert _bits(t_alloc.allocate(empty, empty, empty, budget)) == _bits(
+        j_alloc.allocate(empty, empty, empty, budget))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_staircase_prune_keeps_the_reference_plans(seed):
+    rng = np.random.default_rng(seed)
+    n = 40 + 60 * seed
+    # coarse grids, so that values, times and whole triples repeat
+    v = rng.integers(0, 8, n) / 4.0
+    t_pre = rng.integers(0, 10, n) / 8.0
+    t_done = t_pre + rng.integers(0, 10, n) / 8.0
+    if seed % 2:
+        v = v + rng.uniform(0, 1e-3, n)  # distinct values
+    plans = [j_alloc.Plan(float(a), float(b), float(c), (i,))
+             for i, (a, b, c) in enumerate(zip(v, t_pre, t_done))]
+    want = [p.models[0] for p in j_alloc._prune_dominated(plans)]
+    assert t_alloc._prune_dominated(v, t_pre, t_done).tolist() == want
+
+
+def _reference_candidates(acc, d_pre, d_inf, budget):
+    """The feasible (plan, model) pairs of the reference's loop, summed
+    over its columns."""
+    d_tot = d_pre + d_inf
+    frontier = [j_alloc.Plan(float(acc[i, 0]), float(d_pre[i, 0]),
+                             float(d_tot[i, 0]), ())
+                for i in range(acc.shape[0]) if d_tot[i, 0] <= budget]
+    n = len(frontier)
+    frontier = j_alloc._prune_dominated(frontier)
+    for j in range(1, acc.shape[1]):
+        nxt = [j_alloc.Plan(p.value + float(acc[i, j]),
+                            p.t_pre + float(d_pre[i, j]),
+                            max(p.t_pre + d_tot[i, j], p.t_done + d_inf[i, j]),
+                            ())
+               for p in frontier for i in range(acc.shape[0])
+               if max(p.t_pre + d_tot[i, j], p.t_done + d_inf[i, j]) <= budget]
+        n += len(nxt)
+        frontier = j_alloc._prune_dominated(nxt)
+    return n
+
+
+@pytest.mark.parametrize("ties", TIES)
+def test_allocate_counts_the_reference_candidates(ties):
+    from repro_torch import tracing
+
+    acc, d_pre, d_inf = _ladder_instance(7, 9, ties)
+    budget = 0.15 * float((d_pre + d_inf).max(axis=0).sum())
+    tracing.reset()
+    tracing.begin_tick(0)
+    try:
+        t_alloc.allocate(acc, d_pre, d_inf, budget)
+        t_alloc.allocate(acc[:, :0], d_pre[:, :0], d_inf[:, :0], budget)
+    finally:
+        tracing.end_tick()
+    counted = tracing.tick_counters(0)["alloc.candidates"]
+    tracing.reset()
+    assert counted == _reference_candidates(acc, d_pre, d_inf, budget)
+
+
 def _history(m, seed, n):
     rng = np.random.default_rng(seed)
     return [m.Detection(np.array([rng.uniform(-math.pi, math.pi),
