@@ -28,3 +28,10 @@ def set_fp32_policy() -> None:
     or in matrix products (PyTorch enables TF32 for cuDNN by default)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def set_bf16_policy() -> None:
+    """bfloat16 matrix products accumulate and reduce in float32: no
+    reduced-precision reductions of split-K partial sums (which PyTorch
+    allows by default)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -481,6 +481,136 @@ _INIT = {ViTConfig: vit_init, ConvNeXtConfig: convnext_init,
          ResNetConfig: resnet_init}
 
 
+# ==========================================================================
+# MoonViT (Kimi-VL's native-resolution vision tower)
+# ==========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class MoonViTConfig:
+    """MoonViT's widths (Kimi-VL's ``vision_config``).  A crop of S x S
+    pixels is (S / patch)^2 patches; the merger folds each
+    ``merge`` x ``merge`` block of patches into one token of
+    ``merge^2 * d_model`` features."""
+
+    patch: int = 14
+    d_model: int = 1152
+    n_layers: int = 27
+    n_heads: int = 16
+    d_ff: int = 4304
+    pos_grid: int = 64  # the learnable position table is pos_grid^2
+    rope_theta: float = 10000.0
+    ln_eps: float = 1e-5
+    merge: int = 2
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def moonvit_patches(crops: Tensor, patch: int) -> Tensor:
+    """(b, S, S, 3) intensities in [0, 1] (8-bit pixels over 255) ->
+    (b, (S / patch)^2, 3 patch^2) rows, each normalised as ``(x - 0.5) /
+    0.5`` in float32, in the (channel, row, column) order of an OIHW
+    kernel flattened."""
+    b, s, _, c = crops.shape
+    g = s // patch
+    x = (crops.to(torch.float32) - 0.5) / 0.5
+    x = x.view(b, g, patch, g, patch, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(b, g * g, c * patch * patch)
+
+
+def moonvit_pos(table: Tensor, gh: int, gw: int) -> Tensor:
+    """The (G, G, d) position table bicubically interpolated (corners
+    not aligned) to a (gh, gw) patch grid, in float32, as (gh gw, d)."""
+    t = table.to(torch.float32).permute(2, 0, 1)[None]
+    if tuple(t.shape[-2:]) != (gh, gw):
+        t = torch.nn.functional.interpolate(t, size=(gh, gw), mode="bicubic",
+                                            align_corners=False)
+    return t[0].permute(1, 2, 0).reshape(gh * gw, -1)
+
+
+def moonvit_rope(gh: int, gw: int, d_head: int, theta: float,
+                 device) -> Tensor:
+    """(gh gw, d_head / 2) unit complex turns of the 2D RoPE: a head's
+    feature pairs (2j, 2j + 1) are interleaved; pair 2k turns by the
+    patch's column times theta^(-4k / d_head) and pair 2k + 1 by its row
+    times the same frequency."""
+    freqs = 1.0 / theta ** (torch.arange(0, d_head, 4, dtype=torch.float32,
+                                         device=device)[: d_head // 4]
+                            / d_head)
+    pos = torch.arange(gh * gw, device=device)
+    cols = (pos % gw).to(torch.float32)[:, None] * freqs
+    rows = (pos // gw).to(torch.float32)[:, None] * freqs
+    angles = torch.stack([cols, rows], -1).reshape(gh * gw, d_head // 2)
+    return torch.polar(torch.ones_like(angles), angles)
+
+
+def rotate_pairs(x: Tensor, turn: Tensor) -> Tensor:
+    """Turn each interleaved feature pair (2j, 2j + 1) of ``x`` (..., D)
+    by the unit complex ``turn`` (broadcast to (..., D / 2)), in float32,
+    cast back to ``x``'s dtype."""
+    xc = torch.view_as_complex(
+        x.to(torch.float32).unflatten(-1, (-1, 2)).contiguous())
+    return torch.view_as_real(xc * turn).flatten(-2).to(x.dtype)
+
+
+def _linear(p: Params, x: Tensor) -> Tensor:
+    return torch.addmm(p["b"], x.flatten(0, -2), p["w"]).unflatten(
+        0, x.shape[:-1])
+
+
+def _layer_norm(p: Params, x: Tensor, eps: float) -> Tensor:
+    """LayerNorm over the last axis (population variance, float32
+    statistics inside PyTorch's kernel), in ``x``'s dtype."""
+    return torch.nn.functional.layer_norm(x, x.shape[-1:], p["scale"],
+                                          p["bias"], eps)
+
+
+def _moonvit_block(p: Params, x: Tensor, turn: Tensor,
+                   cfg: MoonViTConfig) -> Tensor:
+    b, n, d = x.shape
+    h = cfg.n_heads
+    y = _layer_norm(p["ln0"], x, cfg.ln_eps)
+    q, k, v = _linear(p["wqkv"], y).view(b, n, 3, h, cfg.d_head).unbind(2)
+    turn = turn[None, :, None, :]
+    q, k = rotate_pairs(q, turn), rotate_pairs(k, turn)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    x = x + _linear(p["wo"], o.transpose(1, 2).reshape(b, n, d))
+    y = _layer_norm(p["ln1"], x, cfg.ln_eps)
+    y = torch.nn.functional.gelu(_linear(p["fc0"], y), approximate="tanh")
+    return x + _linear(p["fc1"], y)
+
+
+def moonvit_apply(params: Params, crops: Tensor, cfg: MoonViTConfig,
+                  dtype=torch.bfloat16, pos: Tensor | None = None) -> Tensor:
+    """MoonViT on a batch of equal crops (b, S, S, 3) in [0, 1] ->
+    (b, (S / patch / merge)^2, merge^2 d_model) merged tokens, in
+    ``dtype``: the patch embedding, the interpolated position table
+    (``pos``, the (g^2, d) table :func:`moonvit_pos` gives for the crops'
+    patch grid, where a caller keeps it), ``n_layers`` pre-LN blocks
+    with 2D RoPE and full attention within a crop, the final LayerNorm
+    and the 2 x 2 merger (the four patches of a block in row-major
+    order, their features side by side)."""
+    b, s = crops.shape[:2]
+    g = s // cfg.patch
+    x = moonvit_patches(crops, cfg.patch).to(dtype)
+    w = params["patch"]["w"]
+    x = torch.addmm(params["patch"]["b"], x.flatten(0, 1),
+                    w.reshape(w.shape[0], -1).t()).view(b, g * g, -1)
+    if pos is None:
+        pos = moonvit_pos(params["pos"], g, g)
+    x = x + pos.to(dtype)
+    turn = moonvit_rope(g, g, cfg.d_head, cfg.rope_theta, x.device)
+    for p in params["blocks"]:
+        x = _moonvit_block(p, x, turn, cfg)
+    x = _layer_norm(params["final_ln"], x, cfg.ln_eps)
+    m = cfg.merge
+    x = x.view(b, g // m, m, g // m, m, cfg.d_model).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (g // m) ** 2, m * m * cfg.d_model)
+
+
 def init_params(gen: torch.Generator, cfg,
                 device: str | torch.device | None = None) -> Params:
     """The init of ``cfg``'s family (ViT, ConvNeXt or ResNet)."""

@@ -484,6 +484,34 @@ class FrameStaging:
         tracing.count("h2d_bytes", out.nbytes)
         return out
 
+    def _chunk_frames(self, chunk_frames: list) -> tuple:
+        """The (F, H, W, C) device frames a chunk's crops read, and each
+        crop's index into them.  Where every crop's frame is staged in
+        one stack (:meth:`stage_frames`; found by identity), that stack
+        as it is; otherwise each distinct frame of the chunk is uploaded
+        once, into its slot of a new stack."""
+        staged = [self._staged.get(id(f)) for f in chunk_frames]
+        if all(ent is not None and ent[0] is f
+               for ent, f in zip(staged, chunk_frames)):
+            stacks = {id(ent[1]) for ent in staged}
+            if len(stacks) == 1:
+                return staged[0][1], [ent[2] for ent in staged]
+        slot: dict[int, int] = {}  # id(frame) -> index into `distinct`
+        distinct = []
+        frame_idx = []
+        for f in chunk_frames:
+            if id(f) not in slot:
+                slot[id(f)] = len(distinct)
+                distinct.append(f)
+            frame_idx.append(slot[id(f)])
+        frames = torch.empty((len(distinct),) + tuple(distinct[0].shape),
+                             dtype=torch.float32, device=self.device)
+        for k, f in enumerate(distinct):
+            frames[k].copy_(torch.as_tensor(f, dtype=torch.float32))
+            self.frame_uploads += 1
+            tracing.count("h2d_bytes", frames[k].nbytes)
+        return frames, frame_idx
+
 
 class TorchDetectorBackend(FrameStaging):
     """Real path: gnomonic projection (CUDA kernels) + the PyTorch
@@ -738,34 +766,6 @@ class TorchDetectorBackend(FrameStaging):
                     self._cache_put(keys[i], chunk[i][0], guard,
                                     fresh[j].clone(), chunk[i][1])
         return torch.stack(rows), geoms
-
-    def _chunk_frames(self, chunk_frames: list) -> tuple:
-        """The (F, H, W, C) device frames a chunk's crops read, and each
-        crop's index into them.  Where every crop's frame is staged in
-        one stack (:meth:`stage_frames`; found by identity), that stack
-        as it is; otherwise each distinct frame of the chunk is uploaded
-        once, into its slot of a new stack."""
-        staged = [self._staged.get(id(f)) for f in chunk_frames]
-        if all(ent is not None and ent[0] is f
-               for ent, f in zip(staged, chunk_frames)):
-            stacks = {id(ent[1]) for ent in staged}
-            if len(stacks) == 1:
-                return staged[0][1], [ent[2] for ent in staged]
-        slot: dict[int, int] = {}  # id(frame) -> index into `distinct`
-        distinct = []
-        frame_idx = []
-        for f in chunk_frames:
-            if id(f) not in slot:
-                slot[id(f)] = len(distinct)
-                distinct.append(f)
-            frame_idx.append(slot[id(f)])
-        frames = torch.empty((len(distinct),) + tuple(distinct[0].shape),
-                             dtype=torch.float32, device=self.device)
-        for k, f in enumerate(distinct):
-            frames[k].copy_(torch.as_tensor(f, dtype=torch.float32))
-            self.frame_uploads += 1
-            tracing.count("h2d_bytes", frames[k].nbytes)
-        return frames, frame_idx
 
     @torch.inference_mode()
     def launch_srois_batched(self, items, variant: acc_mod.ModelProfile,

@@ -27,6 +27,14 @@ a genuinely different shape from detection's — the first real test that
 ``solve_pod`` generalises past one cost curve.  Action results are
 ordinary ``sroi.Detection`` records whose ``category`` is the action
 class, so NMS, digests, history feedback and telemetry are unchanged.
+
+``region_description`` is the third, and has no counterpart in the
+reference: a vision-language model (Kimi-VL-A3B, ``models/kimi_vl.py``)
+describes each SRoI's crop, one prefill and a greedy answer a request,
+the answers of a tick decoded together (:class:`TorchVlmBackend`).  Its
+ladder is one model read at four crop sizes, so the allocator's rung
+sets the number of image tokens.  A result is a ``Detection`` on the
+region's own box, so the same downstream stays unchanged.
 """
 
 from __future__ import annotations
@@ -376,6 +384,261 @@ def default_action_configs(n_actions: int = N_ACTION_CLASSES):
 
 
 # --------------------------------------------------------------------------
+# region description (Kimi-VL-A3B)
+# --------------------------------------------------------------------------
+
+N_DESCRIBE_CLASSES = 80
+
+# the region-description ladder: (name, crop size).  MoonViT reads a
+# crop at its own resolution, so the rung sets the image tokens:
+# (size / 28)^2, 64 to 1024.
+VLM_LADDER: tuple[tuple[str, int], ...] = (
+    ("kimivl-224", 224),
+    ("kimivl-448", 448),
+    ("kimivl-672", 672),
+    ("kimivl-896", 896),
+)
+# edge seconds of one request at each rung (vision, prefill and the
+# answer's decode), as the allocator prices them: constants of the
+# latency model, not measurements
+_VLM_INFER_S = (0.15, 0.4, 0.8, 1.4)
+_VLM_MODEL_MB = 33_000
+
+
+def vlm_ladder(n_categories: int = acc_mod.N_CATEGORIES, seed: int = 11,
+               quality_penalty: float = 1.0) -> list[acc_mod.ModelProfile]:
+    """The region-description task's ``ModelProfile`` ladder: one
+    model read at four crop sizes, a gav table from the detection
+    table's synthetic generator under a task seed (more image tokens,
+    higher accuracy)."""
+    gav = acc_mod.synthetic_gav_table(len(VLM_LADDER), n_categories,
+                                      seed=seed)
+    return [acc_mod.ModelProfile(
+        name=name, index=i + 1, input_size=size, location="edge",
+        gav=gav[i] * quality_penalty, infer_s=_VLM_INFER_S[i],
+        model_bytes=_VLM_MODEL_MB * 2 ** 20)
+        for i, (name, size) in enumerate(VLM_LADDER)]
+
+
+@dataclasses.dataclass
+class DescribedRegion(sroi_mod.Detection):
+    """A region-description result: a ``Detection`` (the region's box,
+    its class and that class's probability) and the answer's ids."""
+
+    tokens: tuple[int, ...] = ()
+
+
+def region_box(region: sroi_mod.SRoI) -> np.ndarray:
+    """A description's box: the region's centre and the extent of the
+    objects it was predicted from (a special region's one object, a
+    regular region's merged extent), so that the next frame predicts the
+    same region from it."""
+    if not region.objects:
+        return np.array([*region.center, *region.fov], dtype=np.float64)
+    if region.special:
+        fh, fv = region.objects[0].fov
+    else:
+        fh, fv = sroi_mod._merged_extents(region.objects)[:2]
+    return np.array([region.center[0], region.center[1], fh, fv],
+                    dtype=np.float64)
+
+
+@dataclasses.dataclass
+class OracleDescribeBackend:
+    """Ground-truth-driven region description (``OracleBackend``'s twin
+    for benches and replay): each region is described by the category of
+    the largest ground-truth object inside it, hit with the variant's
+    gav for it."""
+
+    video: SyntheticVideo
+    frame: int = 0
+    seed: int = 0
+    semantic_batch = True  # class-level: not a dataclass field
+
+    def set_frame(self, frame: int) -> None:
+        self.frame = frame
+
+    def infer_sroi(self, frame_img, region: sroi_mod.SRoI,
+                   variant: acc_mod.ModelProfile):
+        del frame_img
+        inside = [d for d in self.video.visible_objects(self.frame)
+                  if _in_sroi(d, region)]
+        if not inside:
+            return []
+        obj = max(inside, key=lambda d: d.noa())
+        n_cat = len(variant.gav) // 3
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + self.frame) * 131 + variant.index)
+        hit = rng.uniform() < float(variant.gav[n_cat + obj.category % n_cat])
+        cat = obj.category if hit else int(rng.integers(0, n_cat))
+        return [DescribedRegion(box=region_box(region), category=cat,
+                                score=float(variant.gav[n_cat + cat]))]
+
+    def infer_srois_batched(self, items, variant: acc_mod.ModelProfile):
+        return [self.infer_sroi(f, r, variant) for f, r in items]
+
+    def infer_erp(self, frame_img, variant: acc_mod.ModelProfile):
+        del frame_img, variant
+        return []  # region description has no full-ERP discovery pass
+
+
+class _Prefilled:
+    """One launched chunk: its items, the prefill's last-position logits
+    and latents, and (after the tick's joint decode) its results."""
+
+    __slots__ = ("key", "items", "size", "last", "latents", "out")
+
+    def __init__(self, key, items, size, last, latents):
+        self.key, self.items, self.size = key, items, size
+        self.last, self.latents = last, latents
+        self.out = None
+
+
+class TorchVlmBackend(FrameStaging):
+    """Real path of the region-description task: Kimi-VL-A3B
+    (``models/kimi_vl.py``) on each request's crop.
+
+    * :meth:`launch_srois_batched` serves one rung's requests in chunks
+      of at most ``buckets.max_batch``: the chunk's crops in one
+      batched projection (``kernels/gnomonic``), MoonViT and the
+      projector (span ``vlm.vision``), then the LM's prefill over
+      ``[pre_ids] + image tokens + [post_ids]`` (span ``vlm.prefill``),
+      which leaves each request's latents for the decode cache.
+    * The first resolver called after a launch decodes every chunk
+      launched since the last decode together: one latent cache over the
+      tick's requests, whatever their rung (a ragged batch, masked), and
+      ``answer_len`` greedy steps over the full vocabulary (spans
+      ``vlm.decode``, keyed by step).  The drain launches every chunk of
+      a tick before it resolves any, so a tick decodes once.
+    * Each request's result is one :class:`DescribedRegion` on the
+      region's own box (:func:`region_box`): its category is the argmax
+      over ``class_ids`` of the logits at the first answer position, its
+      score that id's softmax over ``class_ids``, and its tokens the ids
+      the decode steps chose.
+
+    Nothing waits for the card until the decode's results come back, so
+    the host enqueues the next chunk while the card runs this one; the
+    spans time the host's side.  Counted (``repro_torch.tracing``):
+    ``vlm.image_tokens``, ``vlm.decode_tokens``, ``vlm.cache_bytes`` and
+    the MoE layers' ``moe.expert_tokens`` / ``moe.expert_tokens_max``
+    (the latter flushed with the decode's copies back).  The weights stay
+    where they are given (bfloat16 on the card for the published widths);
+    products accumulate in float32.
+    """
+
+    def __init__(self, cfg, params, *, pre_ids, post_ids, class_ids,
+                 answer_len: int = 16, buckets=None,
+                 device: str | torch.device | None = None):
+        from repro_torch.device import resolve_device, set_bf16_policy
+        from repro_torch.serving.batching import ShapeBuckets
+
+        self.device = resolve_device(device)
+        set_bf16_policy()
+        self.cfg = cfg
+        self.params = _params_to(params, self.device)
+
+        def ids(x):
+            return torch.as_tensor(x, dtype=torch.long, device=self.device)
+
+        self.pre_ids, self.post_ids = ids(pre_ids), ids(post_ids)
+        self.class_ids = ids(class_ids)
+        self.answer_len = answer_len
+        self.buckets = buckets or ShapeBuckets(
+            resolutions=tuple(size for _, size in VLM_LADDER))
+        self._pending: list[_Prefilled] = []
+        self._pos: dict = {}  # crop size -> its interpolated position table
+        self._init_staging()
+
+    def _prefill(self, key, chunk, size: int) -> _Prefilled:
+        from repro_torch.kernels.gnomonic.ops import project_srois_batched
+        from repro_torch.models import kimi_vl
+        from repro_torch.models.vision import moonvit_pos
+
+        frames, frame_idx = self._chunk_frames([f for f, _ in chunk])
+        crops = project_srois_batched(
+            frames, frame_idx, [r.center for _, r in chunk],
+            [r.fov for _, r in chunk], (size, size))
+        pos = self._pos.get(size)
+        if pos is None:
+            g = size // self.cfg.vision.patch
+            pos = self._pos[size] = moonvit_pos(self.params["vision"]["pos"],
+                                                g, g)
+        with tracing.span("vlm.vision", key):
+            img = kimi_vl.image_tokens(self.params, crops, self.cfg, pos)
+        tracing.count("vlm.image_tokens", img.shape[0] * img.shape[1])
+        with tracing.span("vlm.prefill", key):
+            emb = kimi_vl.prompt_embeds(self.params, self.pre_ids, img,
+                                        self.post_ids)
+            last, latents = kimi_vl.prefill(self.params["lm"], emb,
+                                            self.cfg.lm)
+        tracing.count("forwards")
+        return _Prefilled(key, list(chunk), size, last, latents)
+
+    def _decode(self) -> None:
+        """Decode every pending chunk together and fill their results."""
+        from repro_torch.models import kimi_vl
+
+        chunks, self._pending = self._pending, []
+        fed, logits, cache = kimi_vl.generate(
+            self.params, [(c.last.argmax(-1), c.latents) for c in chunks],
+            self.cfg, self.answer_len)
+        tracing.count("vlm.cache_bytes", cache.nbytes)
+        tracing.count("vlm.decode_tokens", fed.numel())
+        first = torch.cat([c.last for c in chunks])
+        probs = torch.softmax(first[:, self.class_ids], -1)
+        score, cat = probs.max(-1)
+        tokens = tracing.to_host(torch.stack([s.argmax(-1) for s in logits],
+                                             1))
+        cat, score = tracing.to_host(cat), tracing.to_host(score)
+        tracing.flush_counts()
+        r = 0
+        for c in chunks:
+            c.out = []
+            for _, region in c.items:
+                c.out.append([DescribedRegion(
+                    box=region_box(region), category=int(cat[r]),
+                    score=float(score[r]),
+                    tokens=tuple(int(t) for t in tokens[r]))])
+                r += 1
+
+    @torch.inference_mode()
+    def launch_srois_batched(self, items, variant: acc_mod.ModelProfile,
+                             group=None):
+        """Prefill one rung's requests chunk by chunk; returns the
+        resolver of their results (which decodes what is pending)."""
+        del group  # one card
+        size = variant.input_size
+        launched = []
+        lo = 0
+        for b in self.buckets.split(len(items)):
+            key = tracing.seq("chunk")
+            with tracing.span("drain.launch", key):
+                launched.append(self._prefill(key, items[lo:lo + b], size))
+            lo += b
+        self._pending.extend(launched)
+
+        @torch.inference_mode()
+        def resolve() -> list[list]:
+            if any(c.out is None for c in launched):
+                with tracing.span("drain.wait", launched[0].key):
+                    self._decode()
+            return [dets for c in launched for dets in c.out]
+
+        return resolve
+
+    def infer_srois_batched(self, items, variant: acc_mod.ModelProfile):
+        return self.launch_srois_batched(items, variant)()
+
+    def infer_sroi(self, frame_img, region: sroi_mod.SRoI,
+                   variant: acc_mod.ModelProfile):
+        return self.infer_srois_batched([(frame_img, region)], variant)[0]
+
+    def infer_erp(self, frame_img, variant: acc_mod.ModelProfile):
+        del frame_img, variant
+        return []  # region description has no full-ERP discovery pass
+
+
+# --------------------------------------------------------------------------
 # registry
 # --------------------------------------------------------------------------
 
@@ -449,6 +712,13 @@ def _action_loop(variants, latency_model, backend, budget_s, **kw):
     return loop
 
 
+def _describe_loop(variants, latency_model, backend, budget_s, **kw):
+    loop = OmniSenseLoop(variants, latency_model, backend,
+                         budget_s=budget_s, **kw)
+    loop.task = "region_description"
+    return loop
+
+
 register_task(AnalyticsTask(
     name="detection",
     make_ladder=profiles.make_ladder,
@@ -470,6 +740,17 @@ register_task(AnalyticsTask(
     make_loop=_action_loop,
     accuracy_proxy="action_top1",
     result_kind="actions",
+))
+
+register_task(AnalyticsTask(
+    name="region_description",
+    make_ladder=vlm_ladder,
+    make_latency_model=lambda: OmniSenseLatencyModel(
+        profiles.paper_profile(), NetworkModel()),
+    make_backend=OracleDescribeBackend,
+    make_loop=_describe_loop,
+    accuracy_proxy="action_top1",
+    result_kind="descriptions",
 ))
 
 

@@ -11,7 +11,10 @@ the same tick (its parent) and a key that joins spans of one item: the
 stream for per-frame spans, the chunk's number within the tick for the
 drain's.  A span opened outside a tick is not kept; a count outside a
 tick still adds to the cumulative totals (:func:`totals`), which the
-kernels' launch counts (``kernels/_build.py``) read.
+kernels' launch counts (``kernels/_build.py``) read.  A count that sits
+on the device (:func:`count_later`) waits until the caller next reads
+the device anyway, and :func:`flush_counts` brings every such count
+over in one copy.
 
 The recorder keeps the last :data:`MAX_TICKS` ticks, so a long-lived
 server does not grow.  It is meant for one thread, the one that runs
@@ -19,7 +22,9 @@ the pod's step, as the step itself is: spans from two threads at once
 would nest into each other's trees.
 
 Each tick stores one anchor pair, ``(time.time_ns(),
-time.perf_counter_ns())``, taken when it opens; :func:`tick_spans` maps
+time.perf_counter_ns())``, taken when it opens (:func:`_anchor`: the
+two clocks read as nearly at one instant as three tries give);
+:func:`tick_spans` maps
 the stamps through it to Unix-epoch nanoseconds, the clock of
 ``torch.profiler``'s events (``kineto_results.trace_start_ns() + 1000 *
 event.time_range.start``), so a span can be laid over a device trace.
@@ -51,11 +56,28 @@ class Span(NamedTuple):
     key: object
 
 
+def _anchor() -> tuple[int, int]:
+    """A ``(time.time_ns(), time.perf_counter_ns())`` pair read at one
+    instant: of three reads of the wall clock, each between two reads of
+    the performance counter, the one whose two reads lie closest
+    together, paired with their midpoint.  A thread preempted between
+    the two clocks would shift every mapped stamp of the tick by the
+    length of the preemption; the closest bracket bounds that shift."""
+    best = None
+    for _ in range(3):
+        a = _now()
+        wall = time.time_ns()
+        b = _now()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall, (a + b) // 2)
+    return best[1], best[2]
+
+
 class _Tick:
     __slots__ = ("anchor", "spans", "open", "counters", "seqs")
 
     def __init__(self):
-        self.anchor = (time.time_ns(), _now())
+        self.anchor = _anchor()
         self.spans: list[list] = []  # [name, start, end, parent, key]
         self.open: list[int] = []  # indices of the open spans, innermost last
         self.counters: dict[str, int] = {}
@@ -65,6 +87,7 @@ class _Tick:
 _ticks: dict = {}  # tick -> _Tick, oldest first
 _current: _Tick | None = None
 _totals: dict[str, int] = {}
+_later: dict[str, list] = {}  # name -> device scalars not yet counted
 
 
 class span:
@@ -115,6 +138,27 @@ def to_host(tensor):
     count("host_syncs")
     count("d2h_bytes", out.nbytes)
     return out
+
+
+def count_later(name: str, n) -> None:
+    """Add the device scalar ``n`` to counter ``name`` at the next
+    :func:`flush_counts` (reading it now would wait for the device)."""
+    _later.setdefault(name, []).append(n)
+
+
+def flush_counts() -> None:
+    """Count every :func:`count_later` scalar since the last flush, in
+    the current tick, with one copy to the host."""
+    if not _later:
+        return
+    import torch
+
+    names = list(_later)
+    sums = to_host(torch.stack([torch.stack(_later[k]).sum()
+                                for k in names]))
+    _later.clear()
+    for k, v in zip(names, sums):
+        count(k, int(v))
 
 
 def seq(name: str) -> int | None:
@@ -208,4 +252,5 @@ def reset() -> None:
     global _current
     _ticks.clear()
     _totals.clear()
+    _later.clear()
     _current = None

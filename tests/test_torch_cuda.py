@@ -57,6 +57,14 @@ gradient of ``sum(out**2)`` bit for bit: at one model rank the exchange
 moves nothing), and ``compressed_psum_step`` on the card equal to its
 compressor's payload, bit for bit.
 
+Kimi-VL-A3B (no kernel: its attention is PyTorch's SDPA and plain
+products, its experts batched products): one MoonViT block, the dense
+layer and one MoE layer at the published widths, two crops prefilled and
+decoded together through the latent cache in bfloat16, against the
+float32 reference teacher-forced with the port's ids and expert picks
+(the picks within 2^-6 of the reference's top 6 in score, each answer
+position's logits within 2^-5 in relative norm).
+
 The serving policies and the LM paths never run before on the card: the
 pod under ``deadline`` and ``async`` (then ``flush``) against the same
 pod on the CPU (equal schedules, detections within 1e-3), the batched
@@ -1431,3 +1439,69 @@ def test_cuda_compressed_psum_world1(nccl_mesh, mode):
         assert mean[k].device.type == "cuda"
         assert torch.equal(mean[k], want[k]), k
         assert torch.equal(new.residual[k], want_st.residual[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_kimi_vl_layers_at_published_widths(cuda):
+    """Kimi-VL-A3B at its published widths cut to one MoonViT block, the
+    dense layer and one MoE layer: two crops (448 and 672 px, 256 and
+    576 image tokens) prefilled and decoded together for 3 steps through
+    the latent cache in bfloat16, against the float32 reference's full
+    forward of each, teacher-forced with the port's ids and expert picks.
+    The picks fall short of the reference's own top 6 by under 2^-6 in
+    ``s + b`` (bfloat16 moves a score by ~2^-9), and every answer
+    position's logit row lies within 2^-5 of the reference's in relative
+    norm (bf16 products round to 2^-9, two layers and the vision block
+    compounding them)."""
+    import copy
+
+    from repro_torch.configs import kimi_vl_a3b
+    from repro_torch.models import kimi_vl as K
+    from repro_torch.models import kimi_vl_ref as R
+    from repro_torch.device import set_bf16_policy
+
+    set_bf16_policy()
+    d = copy.deepcopy(kimi_vl_a3b.PUBLISHED)
+    d["num_hidden_layers"] = 2
+    d["vision_config"]["num_hidden_layers"] = 1
+    cfg = K.config_from_dict(d)
+    params = K.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           device=cuda)
+    pre, post = (torch.arange(5, 21, device=cuda),
+                 torch.arange(40, 48, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    crops = [torch.rand((1, s, s, 3), generator=g, device=cuda)
+             for s in (448, 672)]
+    calls = []
+    route = K.route
+
+    def tapped(p, x, c):
+        out = route(p, x, c)
+        calls.append(out[0])
+        return out
+
+    K.route = tapped
+    try:
+        chunks, pre_routes = [], []
+        with torch.inference_mode():
+            for c in crops:
+                emb = K.prompt_embeds(params, pre, K.image_tokens(params, c,
+                                                                  cfg), post)
+                calls.clear()
+                last, lat = K.prefill(params["lm"], emb, cfg.lm)
+                pre_routes.append(calls[0])
+                chunks.append((last.argmax(-1), lat, last))
+            calls.clear()
+            fed, logits, _ = K.generate(params, [(a, b) for a, b, _ in
+                                                 chunks], cfg, 3)
+    finally:
+        K.route = route
+    for r, crop in enumerate(crops):
+        forced = [None, torch.cat([pre_routes[r]]
+                                  + [calls[s][r:r + 1] for s in range(3)])]
+        want, gap = R.forward(params, crop[0], pre, post, fed[:, r], d,
+                              forced)
+        assert gap < 2 ** -6
+        got = torch.stack([chunks[r][2][0]] + [s[r] for s in logits])
+        rel = (got - want[-4:]).norm(dim=-1) / want[-4:].norm(dim=-1)
+        assert float(rel.max()) < 2 ** -5, rel

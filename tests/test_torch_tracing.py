@@ -196,20 +196,44 @@ def test_to_host_counts_a_sync_and_its_bytes():
     assert tracing.tick_counters(0) == {"host_syncs": 1, "d2h_bytes": 24}
 
 
+def test_device_counts_wait_for_the_flush():
+    """``count_later`` adds nothing until ``flush_counts``, which counts
+    every name's scalars in the tick it runs in, with one sync."""
+    tracing.begin_tick(0)
+    for n in (3, 4):
+        tracing.count_later("a", torch.tensor(n))
+    tracing.count_later("b", torch.tensor(7))
+    tracing.end_tick()
+    assert "a" not in tracing.totals()
+    tracing.begin_tick(1)
+    tracing.flush_counts()
+    tracing.flush_counts()  # nothing left: no second sync
+    assert tracing.tick_counters(1) == {"a": 7, "b": 7, "host_syncs": 1,
+                                        "d2h_bytes": 16}
+    assert tracing.tick_counters(0) == {}
+
+
 def test_spans_land_on_the_profiler_clock():
+    # the profiler's range opens after the outer span and before the inner
+    # one, and closes after the inner and before the outer: the 2 ms
+    # bounds the two clocks' mapping, whatever time the range's own entry
+    # and exit take (a first call, or a loaded machine, makes that long)
     x = torch.randn(256, 256)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         tracing.begin_tick(0)
-        with torch.profiler.record_function("probe"):
-            with tracing.span("probe"):
-                for _ in range(20):
-                    x = torch.tanh(x @ x)
-                time.sleep(0.005)
+        with tracing.span("outer"):
+            with torch.profiler.record_function("probe"):
+                with tracing.span("probe"):
+                    for _ in range(20):
+                        x = torch.tanh(x @ x)
+                    time.sleep(0.005)
         tracing.end_tick()
     origin = prof.profiler.kineto_results.trace_start_ns()
     [ev] = [e for e in prof.events() if e.name == "probe"]
-    [sp] = tracing.tick_spans(0)
-    assert abs(origin + 1000 * ev.time_range.start - sp.start_ns) < 2e6
-    assert abs(origin + 1000 * ev.time_range.end - sp.end_ns) < 2e6
+    outer, sp = tracing.tick_spans(0)
+    start = origin + 1000 * ev.time_range.start
+    end = origin + 1000 * ev.time_range.end
+    assert outer.start_ns - 2e6 < start < sp.start_ns + 2e6
+    assert sp.end_ns - 2e6 < end < outer.end_ns + 2e6
     assert sp.end_ns - sp.start_ns >= 5e6
