@@ -41,7 +41,12 @@ Phases, in order; any failure exits non-zero:
    that drops one K/V tile and must fail; then the tensor-core kernel,
    the SIMT kernel, SDPA (with a boolean band mask for a window) and the
    plain version are timed in turn.  The bf16 SphIoU option is also checked
-   against the float32 kernel's keep masks (the reference's flip gate);
+   against the float32 kernel's keep masks (the reference's flip gate).
+   The detector's norm-activation tail (group norm, Mish and the
+   bottleneck's residual add in one kernel) is checked and timed at
+   yolo-p6-1280's stem (8 x 64 x 640²) and its 20² level (8 x 1024 x
+   20²), with and without the residual, each held to the same tail in
+   float64 (at most twice as far from it as the plain version, + 1e-6);
 4. a small input through the per-request path on the card and on the
    CPU: the same SRoIs and plans, PIs, detector heads and detection
    scores within tolerance;
@@ -137,7 +142,8 @@ Phases, in order; any failure exits non-zero:
    leaf; (d) the later steps run again from it, their losses printed
    beside the uninterrupted run's (bit-equal or not).  Then
    yolo-p6-1280 (width and depth 1.0, P6 head) trains
-   ``DET_TRAIN_STEPS`` ``detector_train_step``s in float32 (TF32 off) on
+   ``DET_TRAIN_STEPS`` ``detector_train_step``s in float32 (TF32 off,
+   the plain norm-activation tail: the kernel has no backward) on
    ``detector_batches`` of the synthetic video at 1920x3840, batch 8 (cut
    to 4 if peak memory passes ``DET_TRAIN_MAX_GB``): ms a step, images/s,
    loss, grad norm, peak memory; every gradient finite, every conv's
@@ -248,16 +254,19 @@ Phases, in order; any failure exits non-zero:
    the carried requests, the frame uploads (the staged ones, and those of
    chunks holding a carried request, which upload each of their frames
    again) and crop-cache hits; every request served a tick after its
-   emission against ``infer_sroi`` on its own frame at the geometry it
-   was served at (``PER_REQUEST_ATOL``), a control on its stream's next
-   frame that must fail; nothing queued, in flight or staged after the
-   flush; the whole pod run twice from the same seeds, its ``ServeStats``
+   emission: its crop bit-equal to its own frame's projected again at
+   the geometry it was served at, and its detections held to its crop
+   run through the detector alone (``PER_REQUEST_ATOL``, the same
+   categories in the same order), each with a control on its stream's
+   next frame that must fail (the crop, and ``infer_sroi`` there);
+   nothing queued, in flight or staged after the flush; the whole pod run twice from the same seeds, its ``ServeStats``
    fingerprint and per-frame detection digests bit-equal; (c) 4 streams
    for 2 ticks with the loops' budget raised (``RUNG_BUDGETS``) until the
    allocator puts two SRoIs of tick 1 on yolo-p6-1280: its chunks through
    ``project_srois_batched`` at S=1280, the crops held to the float64 map
-   (twice the plain version's distance + 5e-5), each request to
-   ``infer_sroi``, the kernel's ms on the largest chunk beside its bound;
+   (twice the plain version's distance + 5e-5), each request's
+   detections to its crop run alone, the kernel's ms on the largest chunk
+   beside its bound;
    (d) the open-loop fleet: 2 pods over 4 mixed streams (phase 6's
    construction, no placement), affinity routing, SLO admission at 2 s,
    the serve launcher's arrivals (0.5 fps, jitter 0.2, seed 0, 8 frames
@@ -345,8 +354,9 @@ for attention alone), for comparing versions of the kernels; it prints no
 result line.
 
 ``--frame-kernels-only`` stops after the frame loop's kernels (phase 3 for
-the gnomonic sampler, the batched projection, SphIoU and the greedy
-suppression), for the same use; it prints no result line either.
+the gnomonic sampler, the batched projection, SphIoU, the greedy
+suppression and the detector's norm-activation tail), for the same use;
+it prints no result line either.
 
 ``--profile`` also profiles the last pod tick, the last mixed tick, one
 LM prefill step and four decode steps of smollm-135m and of mixtral-8x22b,
@@ -458,11 +468,15 @@ KERNELS = {
     "flash_attention_wgmma": (
         "src/repro_torch/kernels/attention/csrc/attention_wgmma.cu",
         "src/repro/kernels/attention/attention.py:130 (bf16, D 64 and 128)"),
+    "groupnorm_mish": (
+        "src/repro_torch/kernels/groupnorm/csrc/groupnorm_mish.cu",
+        "none: src/repro/models/detector.py:79 _conv_bn's group norm and "
+        "Mish, left to XLA"),
 }
 # the CUDA functions of the frame loop's kernels, as a profile names them
 PORT_KERNEL_FUNCTIONS = ("gnomonic_sample_kernel", "project_srois_kernel",
                          "sphiou_self_kernel", "sphiou_cross_kernel",
-                         "greedy_")
+                         "greedy_", "groupnorm_mish_kernel")
 # the kernels the LM serving paths run, dense and MoE (bf16 on the
 # tensor-core kernel, the float32 policy on the SIMT one); the frame loop
 # runs the others
@@ -930,6 +944,69 @@ def check_sphiou_bf16(records: dict) -> None:
           f"bf16 SphIoU flip gate: rate {rate}, far-row flips {far_flips}")
     records["sphiou_matrix_batch_bf16"]["keep_flip_rate"] = rate
     check(not failed, "; ".join(failed))
+
+
+def check_groupnorm_mish(records: dict) -> None:
+    """The detector's norm-activation tail at yolo-p6-1280's stem and at
+    its 20² level: each against the same tail in float64, then its time
+    beside the plain composition's (``F.group_norm`` and Mish's three
+    kernels, the residual's add) and the bound of one read and one write
+    (and one residual read) at the card's memory rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.groupnorm import ops
+    from repro_torch.kernels.groupnorm.ref import groupnorm_mish_ref
+    from repro_torch.models import layers as L
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for shape, what in (((8, 64, 640, 640), "p6-1280 stem"),
+                        ((8, 1024, 20, 20), "p6-1280 20² level")):
+        c = shape[1]
+        g = L.num_groups(c)
+        x = (torch.randn(shape, generator=gen, device=dev)
+             + torch.rand((1, c, 1, 1), generator=gen, device=dev) * 2 - 1)
+        scale = torch.rand(c, generator=gen, device=dev) + 0.5
+        bias = torch.rand(c, generator=gen, device=dev) - 0.5
+        res = torch.randn(shape, generator=gen, device=dev)
+        for r in (None, res):
+            got = ops.groupnorm_mish(x, scale, bias, residual=r)
+            want = groupnorm_mish_ref(x, scale, bias, residual=r)
+            y = F.group_norm(x.double(), g, scale.double(), bias.double(),
+                             1e-5)
+            exact = y * torch.tanh(F.softplus(y))
+            if r is not None:
+                exact = exact + r.double()
+            del y
+            err = float((got - want).abs().max())
+            err_k = float((got.double() - exact).abs().max())
+            err_p = float((want.double() - exact).abs().max())
+            del exact, want
+            tail = "+ residual" if r is not None else "no residual"
+            check(err_k <= 2 * err_p + 1e-6,
+                  f"groupnorm_mish {shape} {tail}: {err_k} from float64, the "
+                  f"plain version {err_p}")
+            ms = time_ms(lambda: ops.groupnorm_mish(x, scale, bias,
+                                                    residual=r))
+            plain_ms = time_ms(lambda: groupnorm_mish_ref(x, scale, bias,
+                                                          residual=r))
+            n_bytes = (2 if r is None else 3) * x.numel() * 4
+            b_ms, b_by = bound_ms(n_bytes, 0)
+            print(f"kernel groupnorm_mish {what} {'x'.join(map(str, shape))} "
+                  f"f32, {g} groups ({x.numel() // shape[0] // g} floats a "
+                  f"slab), {tail}: max|kernel - plain| {err:.3g}; against "
+                  f"float64: kernel {err_k:.3g}, plain {err_p:.3g} (tol 2 x "
+                  f"plain + 1e-6); ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+                  f"library_ms null (no one PyTorch call computes it), "
+                  f"bound_ms {b_ms:.5f} ({b_by}: {n_bytes / ms / 1e6:.0f} "
+                  f"GB/s reached); {card_line()}")
+            if r is None:
+                records.setdefault("groupnorm_mish", dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None,
+                    shape=f"{'x'.join(map(str, shape))} f32, {g} groups"))
+        del x, res, got
 
 
 FLASH_CASES = [  # the reference's (tests/test_kernels.py)
@@ -2585,6 +2662,8 @@ def run_detector_train(profile: bool) -> None:
     ``DET_TRAIN_STEPS`` steps on ``detector_batches`` of the synthetic
     video at 1920x3840.  The batch is cut from ``DET_TRAIN_BATCH`` to
     half if peak memory passes ``DET_TRAIN_MAX_GB``."""
+    import dataclasses
+
     import torch
 
     from repro_torch import pytree
@@ -2594,7 +2673,8 @@ def run_detector_train(profile: bool) -> None:
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import steps as steps_mod
 
-    cfg = det_mod.PAPER_LADDER[-1]
+    # the plain norm-activation tail: the kernel has no backward
+    cfg = dataclasses.replace(det_mod.PAPER_LADDER[-1], norm_act_impl="plain")
     dev = torch.device("cuda")
     params = det_mod.init_params(torch.Generator(device=dev).manual_seed(30),
                                  cfg, device=dev)
@@ -2610,7 +2690,8 @@ def run_detector_train(profile: bool) -> None:
                        n_batches=DET_TRAIN_STEPS))]
         print(f"detector train path: {cfg.name} ({cfg.input_size} px, width "
               f"{cfg.width_mult}, depth {cfg.depth_mult}, strides "
-              f"{cfg.strides}), float32, TF32 off, adamw lr 1e-3, batch {b}; "
+              f"{cfg.strides}), float32, TF32 off, norm-activation tail "
+              f"{cfg.norm_act_impl}, adamw lr 1e-3, batch {b}; "
               f"{DET_TRAIN_STEPS} batches rendered in "
               f"{time.perf_counter() - t:.1f}s")
         torch.cuda.synchronize()
@@ -2911,7 +2992,8 @@ def check_vision_policy(cfg, params, seed: int,
 def serve_backbone_detectors() -> None:
     """One forward and ``decode`` of a ResNet-50 and a ConvNeXt-B
     backbone detector at ``VISION_DET_RES`` px, batch
-    ``VISION_DET_BATCH``, bf16: the heads' grids and finite boxes."""
+    ``VISION_DET_BATCH``, bf16 (the plain norm-activation tail): the
+    heads' grids and finite boxes."""
     import dataclasses
 
     import torch
@@ -2925,7 +3007,8 @@ def serve_backbone_detectors() -> None:
         bb = dataclasses.replace(mod.full_config(), img_res=VISION_DET_RES)
         cfg = det_mod.BackboneDetectorConfig(
             f"{bb.name}-det", bb, VISION_DET_RES,
-            param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+            param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+            norm_act_impl="plain")  # the kernel takes float32 only
         params = det_mod.backbone_detector_init(
             torch.Generator(device=dev).manual_seed(61 + i), cfg, device=dev)
         with torch.no_grad():
@@ -4023,10 +4106,10 @@ RUNG_SIZE = 1280
 # chunks, so its detections are sync's: the same chunks through the same
 # kernels, held to the pod-tick parity tests' 1e-4
 POLICY_ATOL = 1e-4
-# a request's batched detections against ``infer_sroi`` on its own frame
-# at the geometry it was served at: the two projections (the batched one
-# and the per-request sampling kernel) differ by float32 roundings (a few
-# 1e-6), which the detector's float32 layers carry to its scores and boxes
+# a request's batched detections against its served crop run through the
+# detector alone (``detect_crop``): the same input at batch 1, where the
+# convolutions may take other algorithms, whose float32 roundings the
+# detector's layers carry to its scores and boxes
 PER_REQUEST_ATOL = 1e-3
 # the fleet: the serve launcher's open-loop defaults (launch/serve.py)
 FLEET_PODS, FLEET_FPS, FLEET_JITTER, FLEET_FRAMES = 2, 0.5, 0.2, 8
@@ -4111,6 +4194,42 @@ def served_at(rec):
 
     ct, cp, fov = rec["geom"]
     return SRoI(center=(float(ct), float(cp)), fov=tuple(fov))
+
+
+def detect_crop(backend, rec) -> list:
+    """A recorded request's detections from its served crop run through
+    its variant alone (batch 1), decoded and lifted as ``infer_sroi``
+    does: the batched launch's input, so only the batch differs."""
+    import torch
+
+    from repro_torch.models import detector as det_mod
+
+    idx = rec["variant"].index - 1
+    cfg = backend.cfgs[idx]
+    with torch.inference_mode():
+        outs = det_mod.apply(backend.params[idx], rec["pi"][None], cfg)
+        boxes, scores, classes = det_mod.decode(outs, cfg, backend.conf,
+                                                max_det=backend.max_det)
+    return backend._row_to_dets(boxes[0].cpu().numpy(),
+                                scores[0].cpu().numpy(),
+                                classes[0].cpu().numpy(), served_at(rec),
+                                rec["size"])
+
+
+def reproject(rec, frame_img):
+    """A recorded request's crop projected again by the pod's batched
+    projection from ``frame_img``, staged as the backend stages a frame,
+    at the geometry the request was served at."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gnomonic.ops import project_srois_batched
+
+    frame = torch.as_tensor(np.asarray(frame_img, dtype=np.float32),
+                            device=rec["pi"].device)
+    region = served_at(rec)
+    return project_srois_batched(frame[None], [0], [region.center],
+                                 [region.fov], (rec["size"], rec["size"]))[0]
 
 
 def frame_digests(sink) -> list:
@@ -4219,7 +4338,8 @@ def serve_async(params, videos, checks: bool):
     server = tick_server(loops, [backend] * len(loops), max_batch=MAX_BATCH,
                          buckets=backend.buckets, frame_source=source,
                          policy="async", telemetry=sink)
-    seen = record_chunks(backend) if checks else []
+    seen = record_chunks(backend, keep_pis=lambda size: True) if checks \
+        else []
     carried: list = []
     execute = server._execute
 
@@ -4228,7 +4348,11 @@ def serve_async(params, videos, checks: bool):
                 for it in server.queues.peek(name) if it.age > 0}
         n = len(seen)
         execute(ops, timeline, close)
-        carried.extend(r for r in seen[n:] if id(r["region"]) in aged)
+        for r in seen[n:]:
+            if id(r["region"]) in aged:
+                carried.append(r)
+            else:
+                r["pi"] = None  # only the carried requests' crops are held
 
     server._execute = watching
     for f in range(1, ASYNC_TICKS + 2):  # the last round is the flush
@@ -4267,9 +4391,13 @@ def serve_async(params, videos, checks: bool):
 
 def run_async_pod(params) -> None:
     """4 streams, ``ASYNC_TICKS`` async ticks and the flush: carried
-    requests, each held to ``infer_sroi`` on its own frame (and a control
-    on its stream's next frame, which must fail), nothing left after the
-    flush, and a second run from the same seeds bit-equal."""
+    requests, each one's crop bit-equal to its own frame's projected again
+    (and, a control that must fail, not to its stream's next frame's) and
+    its detections held to its crop run alone (and, a control that must
+    fail, to ``infer_sroi`` on its stream's next frame), nothing left
+    after the flush, and a second run from the same seeds bit-equal."""
+    import torch
+
     from repro_torch.data.synthetic import make_video
     from repro_torch.serving.replay import stats_fingerprint
 
@@ -4290,30 +4418,43 @@ def run_async_pod(params) -> None:
           f"async: {server.stats.frames} frames finished, not "
           f"{n_streams * ASYNC_TICKS}")
     where = {id(img): key for key, img in source.frames.items()}
-    worst, worst_ctl, n_ctl = 0.0, math.inf, 0
+    worst, worst_ctl, worst_det_ctl, n_ctl = 0.0, math.inf, math.inf, 0
     for rec in carried:
         s, f = where[id(rec["frame"])]
-        region = served_at(rec)
-        own = backend.infer_sroi(rec["frame"], region, rec["variant"])
-        ok, _, err = compare_dets(rec["dets"], own, PER_REQUEST_ATOL)
+        check(torch.equal(rec["pi"], reproject(rec, rec["frame"])),
+              f"a carried request of stream {s} frame {f}: its crop is not "
+              f"its own frame's at the geometry it was served at")
+        gap = float((rec["pi"] - reproject(rec, source(s, f + 1)))
+                    .abs().max())
+        check(gap > 0, f"the control (stream {s} frame {f + 1}) passes for "
+              f"a carried request of frame {f}")
+        worst_ctl = min(worst_ctl, gap)
+        ok, _, err = compare_dets(rec["dets"], detect_crop(backend, rec),
+                                  PER_REQUEST_ATOL)
         check(ok, f"a carried request of stream {s} frame {f} differs from "
-                  f"infer_sroi on its own frame (max|err| {err})")
+                  f"its crop run alone (max|err| {err})")
         worst = max(worst, err)
-        if rec["dets"] or own:
-            nxt = backend.infer_sroi(source(s, f + 1), region, rec["variant"])
+        rec["pi"] = None
+        nxt = backend.infer_sroi(source(s, f + 1), served_at(rec),
+                                 rec["variant"])
+        if rec["dets"] or nxt:
             ok_c, _, err_c = compare_dets(rec["dets"], nxt, PER_REQUEST_ATOL)
-            check(not ok_c, f"the control (stream {s} frame {f + 1}) passes "
-                  f"for a carried request of frame {f}")
-            worst_ctl, n_ctl = min(worst_ctl, err_c), n_ctl + 1
+            check(not ok_c, f"the control (infer_sroi on stream {s} frame "
+                  f"{f + 1}) passes for a carried request of frame {f}")
+            worst_det_ctl, n_ctl = min(worst_det_ctl, err_c), n_ctl + 1
     check(n_ctl > 0, "no carried request had a detection to control")
     print(f"async: {server.stats.carried_requests} carried requests, "
           f"{len(carried)} served a tick after emission (their frames no "
-          f"longer staged); each against infer_sroi on its own frame at its "
-          f"served geometry: max|err| {worst:.3g} (tol {PER_REQUEST_ATOL}); "
-          f"the control on the stream's next frame fails for all {n_ctl} "
-          f"with detections (least max|err| {worst_ctl:.3g}, counts or "
-          f"categories differing read inf); after flush 0 queued, 0 in "
-          f"flight, 0 staged, {server.stats.frames} frames finished")
+          f"longer staged); each one's crop bit-equal to its own frame's "
+          f"projected again at the geometry it was served at, and at least "
+          f"{worst_ctl:.3g} from the stream's next frame's (the control); "
+          f"their detections against their crops run alone: max|err| "
+          f"{worst:.3g} (tol {PER_REQUEST_ATOL}, the same categories in the "
+          f"same order); against infer_sroi on the stream's next frame (the "
+          f"control) they fail for all {n_ctl} with detections (least "
+          f"max|err| {worst_det_ctl:.3g}, counts or categories differing "
+          f"read inf); after flush 0 queued, 0 in flight, 0 staged, "
+          f"{server.stats.frames} frames finished")
     fp, digests = stats_fingerprint(server.stats), frame_digests(sink)
     again, _, sink2, _, _ = serve_async(params, videos(), checks=False)
     same_fp = stats_fingerprint(again.stats) == fp
@@ -4328,7 +4469,7 @@ def run_rung_1280(params, cfgs) -> None:
     """4 streams, ``RUNG_TICKS`` sync ticks with the loops' budget raised
     until the allocator puts at least two of tick 1's SRoIs on the 1280
     rung: its chunk through ``project_srois_batched`` at S=1280, the crops
-    held to the float64 map, the detections to ``infer_sroi``, the
+    held to the float64 map, the detections to the crops run alone, the
     kernel's time beside its bound."""
     import numpy as np
     import torch
@@ -4391,9 +4532,10 @@ def run_rung_1280(params, cfgs) -> None:
             torch.tensor([list(fov)]), (RUNG_SIZE, RUNG_SIZE))[0]
         err_k = max(err_k, float((rec["pi"].double() - exact).abs().max()))
         err_p = max(err_p, float((plain.double() - exact).abs().max()))
-        ok, _, err = compare_dets(rec["dets"], backend.infer_sroi(
-            rec["frame"], served_at(rec), rec["variant"]), PER_REQUEST_ATOL)
-        check(ok, f"a {name} request differs from infer_sroi (max|err| {err})")
+        ok, _, err = compare_dets(rec["dets"], detect_crop(backend, rec),
+                                  PER_REQUEST_ATOL)
+        check(ok, f"a {name} request differs from its crop run alone "
+              f"(max|err| {err})")
         worst = max(worst, err)
     check(err_k <= 2 * err_p + 5e-5,
           f"{name} crops {err_k} from the float64 map, the plain version "
@@ -4413,7 +4555,8 @@ def run_rung_1280(params, cfgs) -> None:
     b_ms, b_by = project_bound(stack, idx, centers, fovs, RUNG_SIZE)
     print(f"rung {name}: {len(recs)} requests in chunks {chunks}; crops "
           f"against the float64 map: kernel {err_k:.3g}, plain {err_p:.3g} "
-          f"(tol 2 x plain + 5e-5); detections against infer_sroi max|err| "
+          f"(tol 2 x plain + 5e-5); detections against the crops run alone "
+          f"max|err| "
           f"{worst:.3g} (tol {PER_REQUEST_ATOL})")
     print(f"kernel project_srois_batched B={len(batch)} S={RUNG_SIZE} (the "
           f"tick's {name} chunk, {len(order)} distinct 1920x3840x3 frames): "
@@ -5589,6 +5732,10 @@ def main() -> int:
     print_ptxas(_build.ptxas_report("gnomonic"), "project_srois_kernel")
     print_ptxas(_build.ptxas_report("sphiou"),
                 ("sphiou_self_kernel", "sphiou_cross_kernel"))
+    print_ptxas(_build.ptxas_report("groupnorm"), "groupnorm_mish_kernel")
+    # float4 and one-float-at-a-time instances
+    check_no_spills(_build.ptxas_report("groupnorm"), "groupnorm_mish_kernel",
+                    2)
 
     records: dict = {}
     flash_only = "--flash-only" in sys.argv[1:]
@@ -5598,6 +5745,7 @@ def main() -> int:
         check_project_srois(records)
         check_sphiou_bf16(records)
         check_nms(records)
+        check_groupnorm_mish(records)
     if not frame_only:
         check_flash(records)
     if flash_only or frame_only:

@@ -26,7 +26,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
+from repro_torch.kernels.groupnorm import ops as gn_ops
+from repro_torch.kernels.groupnorm.ref import groupnorm_mish_ref
 from repro_torch.models import layers as L
 from repro_torch.models import vision as V
 
@@ -46,6 +49,9 @@ class DetectorConfig:
     base_depth: int = 3
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
+    # the conv blocks' norm-activation tail on the card: "fused" (the
+    # float32 kernel, no backward) | "plain" (training, bf16)
+    norm_act_impl: str = "fused"
 
     @property
     def policy(self) -> L.DtypePolicy:
@@ -80,9 +86,18 @@ def _conv_bn_init(gen, k, c_in, c_out, dt, device):
             "gn": L.init_groupnorm(c_out, dtype=dt, device=device)}
 
 
-def _conv_bn(p, x, pol, stride=1):
-    x = L.conv2d(p["conv"], x, stride=stride, policy=pol)
-    return L.mish(L.groupnorm(p["gn"], x))
+def _conv_bn(p, x, cfg, stride=1, residual=None):
+    """Convolution, group norm and Mish, then ``residual`` added; the
+    last three in one kernel on the card (``kernels/groupnorm``) unless
+    ``cfg.norm_act_impl`` is ``"plain"``."""
+    x = L.conv2d(p["conv"], x, stride=stride, policy=cfg.policy)
+    tracing.count("norm_act.calls")
+    scale, bias = p["gn"]["scale"], p["gn"]["bias"]
+    if cfg.norm_act_impl == "fused":
+        return gn_ops.groupnorm_mish(x, scale, bias, residual=residual)
+    if cfg.norm_act_impl != "plain":
+        raise ValueError(f"unknown norm_act_impl {cfg.norm_act_impl!r}")
+    return groupnorm_mish_ref(x, scale, bias, residual=residual)
 
 
 def _csp_block_init(gen, c, n, dt, device):
@@ -99,12 +114,12 @@ def _csp_block_init(gen, c, n, dt, device):
     }
 
 
-def _csp_block(p, x, pol):
-    a = _conv_bn(p["split1"], x, pol)
-    b = _conv_bn(p["split2"], x, pol)
+def _csp_block(p, x, cfg):
+    a = _conv_bn(p["split1"], x, cfg)
+    b = _conv_bn(p["split2"], x, cfg)
     for bp in p["bottlenecks"]:
-        b = b + _conv_bn(bp["c2"], _conv_bn(bp["c1"], b, pol), pol)
-    return _conv_bn(p["fuse"], torch.cat([a, b], dim=1), pol)
+        b = _conv_bn(bp["c2"], _conv_bn(bp["c1"], b, cfg), cfg, residual=b)
+    return _conv_bn(p["fuse"], torch.cat([a, b], dim=1), cfg)
 
 
 def init_params(gen: torch.Generator, cfg: DetectorConfig,
@@ -169,21 +184,21 @@ def apply(params: Params, images: Tensor, cfg: DetectorConfig) -> list[Tensor]:
     # which steers convolution and group norm to their channels-last CPU
     # kernels, and those gave results that varied from process to process
     x = images.permute(0, 3, 1, 2).contiguous()
-    x = _conv_bn(params["stem"], x, pol, stride=2)
-    x = _conv_bn(params["stem2"], x, pol, stride=2)
+    x = _conv_bn(params["stem"], x, cfg, stride=2)
+    x = _conv_bn(params["stem2"], x, cfg, stride=2)
     feats = []
     for st in params["stages"]:
-        x = _conv_bn(st["down"], x, pol, stride=2)
-        x = _csp_block(st["csp"], x, pol)
+        x = _conv_bn(st["down"], x, cfg, stride=2)
+        x = _csp_block(st["csp"], x, cfg)
         feats.append(x)
     # top-down FPN
     for i in reversed(range(len(feats) - 1)):
         up = L.upsample_nearest(
-            _conv_bn(params["laterals"][i], feats[i + 1], pol), 2)
-        feats[i] = _csp_block(params["fpn"][i], feats[i] + up, pol)
+            _conv_bn(params["laterals"][i], feats[i + 1], cfg), 2)
+        feats[i] = _csp_block(params["fpn"][i], feats[i] + up, cfg)
     outs = []
     for f, hp in zip(feats, params["heads"]):
-        h = _conv_bn(hp["conv"], f, pol)
+        h = _conv_bn(hp["conv"], f, cfg)
         outs.append(L.conv2d(hp["out"], h, policy=pol).to(torch.float32)
                     .permute(0, 2, 3, 1))
     return outs
@@ -312,6 +327,7 @@ class BackboneDetectorConfig:
     head_width: int = 128
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
+    norm_act_impl: str = "fused"  # as DetectorConfig's
 
     @property
     def policy(self) -> L.DtypePolicy:
@@ -364,8 +380,8 @@ def backbone_detector_apply(params: Params, images: Tensor,
     outs = []
     for f, hp in zip(feats[1:], params["heads"]):  # strides 8/16/32
         # a contiguous NCHW copy, as :func:`apply` takes its input
-        h = _conv_bn(hp["lateral"], f.permute(0, 3, 1, 2).contiguous(), pol)
-        h = _conv_bn(hp["conv"], h, pol)
+        h = _conv_bn(hp["lateral"], f.permute(0, 3, 1, 2).contiguous(), cfg)
+        h = _conv_bn(hp["conv"], h, cfg)
         outs.append(L.conv2d(hp["out"], h, policy=pol).to(torch.float32)
                     .permute(0, 2, 3, 1))
     return outs
